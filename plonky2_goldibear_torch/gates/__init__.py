@@ -1,0 +1,28 @@
+"""Gates, constraint side, and the id strings the port accepts."""
+
+import re
+
+from .base import Gate
+from .basic_gates import ArithmeticGate, ConstantGate, NoopGate, \
+    PublicInputGate
+from .poseidon import PoseidonGate
+
+_PATTERNS = [
+    (re.compile(r"ArithmeticGate \{ num_ops: (\d+) \}"),
+     lambda m: ArithmeticGate(int(m.group(1)))),
+    (re.compile(r"ConstantGate \{ num_consts: (\d+) \}"),
+     lambda m: ConstantGate(int(m.group(1)))),
+    (re.compile(r"PublicInputGate<(\d+)>"),
+     lambda m: PublicInputGate(int(m.group(1)))),
+    (re.compile(r"NoopGate"), lambda m: NoopGate()),
+    (re.compile(r"PoseidonGate<WIDTH=12>"), lambda m: PoseidonGate()),
+]
+
+
+def gate_from_id(gate_id: str) -> Gate:
+    """The port's gate for a reference id string; raises on any other."""
+    for pattern, make in _PATTERNS:
+        m = pattern.fullmatch(gate_id)
+        if m:
+            return make(m)
+    raise ValueError(f"gate {gate_id!r} is not ported")

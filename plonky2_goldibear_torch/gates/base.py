@@ -1,0 +1,62 @@
+"""Gate framework, constraint side (reference plonky2/src/gates/gate.rs:
+53-430).
+
+A gate evaluates its constraints over every point of the quotient domain
+at once (the reference's ``eval_unfiltered_base_batch``, batched over the
+whole domain): ``eval_unfiltered_device(wires, constants, pi_hash)`` takes
+the stacked wires (num_wires, m), the gate constants (k, m) and the
+public-input hash (4 scalar tensors) and returns a (num_constraints, m)
+tensor.
+
+Selector filtering (reference gate.rs:391-430): filter = prod over the
+gate's selector group of (i - s), times (UNUSED - s) when the circuit has
+several selector polynomials.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..field import gl
+
+# Placeholder selector value for rows whose gate is in another group
+# (reference gates/selectors.rs:14).
+UNUSED_SELECTOR = (1 << 32) - 1
+
+
+class Gate:
+    """Base gate.  Subclasses define id() (the reference's Rust Debug
+    string), num_constraints() and eval_unfiltered_device()."""
+
+    def id(self) -> str:
+        raise NotImplementedError
+
+    def num_constraints(self) -> int:
+        raise NotImplementedError
+
+    def eval_unfiltered_device(self, wires: torch.Tensor,
+                               constants: torch.Tensor,
+                               pi_hash) -> torch.Tensor:
+        raise NotImplementedError
+
+    def __eq__(self, other):
+        return isinstance(other, Gate) and self.id() == other.id()
+
+    def __hash__(self):
+        return hash(self.id())
+
+    def __repr__(self):
+        return self.id()
+
+
+def compute_filter(row: int, group_range, s: torch.Tensor,
+                   many_selector: bool) -> torch.Tensor:
+    """prod_{i in group, i != row} (i - s), times (UNUSED - s) when the
+    circuit has several selectors (reference gate.rs:391-431)."""
+    consts = [i for i in range(group_range[0], group_range[1]) if i != row]
+    if many_selector:
+        consts.append(UNUSED_SELECTOR % gl.P)
+    if not consts:
+        return gl.ones((), s.device)
+    terms = gl.sub(gl.from_ints(consts, s.device)[:, None], s[None, :])
+    return gl.batch_prod(terms, axis=0)

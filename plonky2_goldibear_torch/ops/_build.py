@@ -1,0 +1,101 @@
+"""Build the CUDA sources of ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled at first use by one ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, under
+``plonky2_goldibear_torch/_build/`` (listed in ``.gitignore``), named by a
+hash of the sources so an edit rebuilds.  ``build_all`` starts one ``nvcc``
+per source, all at once.  Nothing here runs at import: the CPU path never
+needs ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, List
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SOURCES = ("ntt_gl", "poseidon_gl")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+BUILD_LOG: Dict[str, str] = {}      # ptxas report per source
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256()
+    for fn in sorted(os.listdir(CSRC)):
+        if fn.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, fn), "rb") as f:
+                h.update(fn.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
+
+
+def _command(name: str, out: str) -> List[str]:
+    return [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+            "-fPIC", "-Xptxas", "-v", "-I", CSRC, "-o", out,
+            os.path.join(CSRC, name + ".cu")]
+
+
+def build_all(names=SOURCES) -> Dict[str, float]:
+    """Compile every missing library, one nvcc per source in parallel.
+    Returns the seconds each build took (0 where it was already built)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _lib_path(name)
+        if not os.path.exists(out):
+            tmp = out + f".{os.getpid()}.tmp"
+            procs[name] = (subprocess.Popen(
+                _command(name, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), tmp, out)
+    secs = {name: 0.0 for name in names}
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        secs[name] = time.perf_counter() - t0
+    return secs
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        if name not in _LIBS:
+            path = _lib_path(name)
+            if not os.path.exists(path):
+                build_all((name,))
+            _LIBS[name] = ctypes.CDLL(path)
+        return _LIBS[name]
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed with error {err}")

@@ -1,0 +1,260 @@
+"""Poseidon-GL kernels (``csrc/poseidon_gl.cu``) and their plain torch
+versions: the width-12 permutation, the leaf sponge and the Merkle levels.
+
+Replaces the TPU kernels of ``plonky2_goldibear_tpu/ops/poseidon_gl.py``:
+``permute_cols`` -> ``permute``, ``hash_cols_no_pad`` -> ``hash_leaves``,
+``tree_tail_cols`` / ``build_levels_cols`` -> ``merkle_levels``.  On the
+H100 all three are bound by integer multiplies (1888 32-bit products per
+permutation against 192 bytes of state in and out); the kernels keep each
+state in registers for the whole permutation, the round constants in
+constant memory, and run the MDS as a small-integer circulant with exact
+64-bit limb sums (see the note in the source).  Layouts follow the JAX
+package's public functions: states (..., 12), leaf rows (n, L), digest
+levels (w, 4) in natural node order.
+
+Each wrapper launches its kernel for a CUDA tensor and runs the plain
+version for a CPU tensor; there is no other dispatch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import List
+
+import numpy as np
+import torch
+
+from ..field import gl
+from ..hash import _poseidon_gl_constants as C
+
+WIDTH = C.SPONGE_WIDTH          # 12
+RATE = C.SPONGE_RATE            # 8
+NUM_HASH_OUT = 4
+HALF_FULL = C.HALF_N_FULL_ROUNDS
+N_PARTIAL = C.N_PARTIAL_ROUNDS
+N_ROUNDS = 2 * HALF_FULL + N_PARTIAL
+TAIL_W = 512                    # must match csrc/poseidon_gl.cu
+
+launches = {"permute": 0, "leaf_sponge": 0, "merkle_levels": 0}
+
+# Dense MDS matrix M[r, j] = CIRC[(j - r) mod 12] + (r == j) DIAG[r]
+_MDS = np.zeros((WIDTH, WIDTH), dtype=np.int64)
+for _r in range(WIDTH):
+    for _j in range(WIDTH):
+        _MDS[_r, _j] = C.MDS_MATRIX_CIRC[(_j - _r) % WIDTH]
+    _MDS[_r, _r] += C.MDS_MATRIX_DIAG[_r]
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@lru_cache(maxsize=8)
+def _tables(device: str):
+    rc = gl.from_ints(np.array(C.ALL_ROUND_CONSTANTS, dtype=np.uint64)
+                      .reshape(N_ROUNDS, WIDTH), device)
+    return rc, torch.from_numpy(_MDS).to(device)
+
+
+# --------------------------------------------------------------------------
+# plain torch versions
+# --------------------------------------------------------------------------
+
+
+def _sbox(x):
+    x2 = gl.mul(x, x)
+    x3 = gl.mul(x2, x)
+    return gl.mul(x3, gl.mul(x2, x2))
+
+
+def _mds(s, m):
+    """out[r] = sum_j M[r, j] s[j], as exact sums of 32-bit limbs."""
+    lo = (s & gl.M32).unsqueeze(-2)
+    hi = ((s >> 32) & gl.M32).unsqueeze(-2)
+    acc_lo = (lo * m).sum(-1)                 # < 264 * 2^32 < 2^41
+    h = (hi * m).sum(-1) + (acc_lo >> 32)
+    return gl._reduce128(acc_lo & gl.M32, h & gl.M32, h >> 32,
+                         torch.zeros_like(h))
+
+
+def permute_plain(state: torch.Tensor) -> torch.Tensor:
+    """The width-12 Poseidon permutation on (..., 12), naive schedule."""
+    rc, m = _tables(str(state.device))
+    s = state
+    for r in range(N_ROUNDS):
+        s = gl.add(s, rc[r])
+        if HALF_FULL <= r < HALF_FULL + N_PARTIAL:
+            s = torch.cat([_sbox(s[..., :1]), s[..., 1:]], dim=-1)
+        else:
+            s = _sbox(s)
+        s = _mds(s, m)
+    return s
+
+
+def hash_leaves_plain(inputs: torch.Tensor,
+                      num_outputs: int = NUM_HASH_OUT) -> torch.Tensor:
+    """Absorb each row (..., L) into a zero state in overwrite mode, 8 at a
+    time (reference hash/hashing.rs:100-124); the first num_outputs lanes
+    of the final state."""
+    length = inputs.shape[-1]
+    state = gl.zeros(inputs.shape[:-1] + (WIDTH,), inputs.device)
+    for i in range(0, length, RATE):
+        chunk = inputs[..., i:i + RATE]
+        state = permute_plain(
+            torch.cat([chunk, state[..., chunk.shape[-1]:]], dim=-1))
+    return state[..., :num_outputs]
+
+
+def _two_to_one_level_plain(cur: torch.Tensor) -> torch.Tensor:
+    pairs = cur.reshape(-1, 2 * NUM_HASH_OUT)
+    state = torch.cat([pairs, torch.zeros_like(pairs[:, :NUM_HASH_OUT])],
+                      dim=-1)
+    return permute_plain(state)[:, :NUM_HASH_OUT]
+
+
+def merkle_levels_plain(d0: torch.Tensor, num_layers: int
+                        ) -> List[torch.Tensor]:
+    """Digests (n, 4) -> [level_1, ..., level_num_layers], level k of
+    n >> k digests in natural node order (parent i of children 2i, 2i+1)."""
+    levels = []
+    cur = d0
+    for _ in range(num_layers):
+        cur = _two_to_one_level_plain(cur)
+        levels.append(cur)
+    return levels
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+_CONSTANTS_SET = set()
+
+
+def _lib(device):
+    from . import _build
+
+    lib = _build.lib("poseidon_gl")
+    if device.index not in _CONSTANTS_SET:
+        p64 = ctypes.POINTER(ctypes.c_uint64)
+        lib.poseidon_gl_set_constants.argtypes = [p64, p64, p64]
+        rc = np.array(C.ALL_ROUND_CONSTANTS, dtype=np.uint64)
+        circ = np.array(C.MDS_MATRIX_CIRC, dtype=np.uint64)
+        diag = np.array(C.MDS_MATRIX_DIAG, dtype=np.uint64)
+        with torch.cuda.device(device):
+            err = lib.poseidon_gl_set_constants(
+                rc.ctypes.data_as(p64), circ.ctypes.data_as(p64),
+                diag.ctypes.data_as(p64))
+        _build.check(err, "poseidon_gl_set_constants")
+        vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.poseidon_gl_permute.argtypes = [vp, vp, ll, vp]
+        lib.poseidon_gl_leaf_sponge.argtypes = [vp, vp, ll, i32, i32, vp]
+        lib.poseidon_gl_merkle_level.argtypes = [vp, vp, ll, vp]
+        lib.poseidon_gl_merkle_tail.argtypes = [vp, vp, i32, i32, vp]
+        assert lib.poseidon_gl_tail_width() == TAIL_W
+        _CONSTANTS_SET.add(device.index)
+    return lib
+
+
+def _check_cuda(x: torch.Tensor, what: str) -> None:
+    if x.dtype != torch.int64:
+        raise TypeError(f"{what} needs int64 field tensors, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous tensor")
+
+
+def _on_cpu(x: torch.Tensor, what: str) -> bool:
+    if x.is_cuda:
+        return False
+    if x.device.type != "cpu":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return True
+
+
+def permute(state: torch.Tensor) -> torch.Tensor:
+    """Batched permutation of states (..., 12)."""
+    if state.shape[-1] != WIDTH:
+        raise ValueError(f"permute needs (..., 12) states, got {state.shape}")
+    if _on_cpu(state, "permute"):
+        return permute_plain(state)
+    from . import _build
+
+    state = state.contiguous()
+    _check_cuda(state, "permute")
+    out = torch.empty_like(state)
+    n = state.numel() // WIDTH
+    err = _lib(state.device).poseidon_gl_permute(
+        state.data_ptr(), out.data_ptr(), n, _build.stream_ptr(state.device))
+    _build.check(err, "poseidon_gl_permute")
+    launches["permute"] += 1
+    return out
+
+
+def hash_leaves(inputs: torch.Tensor,
+                num_outputs: int = NUM_HASH_OUT) -> torch.Tensor:
+    """Sponge of each leaf row (n, L) -> (n, num_outputs) as
+    ``hash_leaves_plain``: L >= 1, num_outputs <= 12."""
+    if inputs.ndim != 2 or inputs.shape[1] == 0 or num_outputs > WIDTH:
+        raise ValueError(f"hash_leaves needs (n, L>0) rows and at most "
+                         f"{WIDTH} outputs, got {tuple(inputs.shape)}, "
+                         f"{num_outputs}")
+    if _on_cpu(inputs, "hash_leaves"):
+        return hash_leaves_plain(inputs, num_outputs)
+    from . import _build
+
+    inputs = inputs.contiguous()
+    _check_cuda(inputs, "hash_leaves")
+    n, length = inputs.shape
+    out = torch.empty((n, num_outputs), dtype=torch.int64,
+                      device=inputs.device)
+    err = _lib(inputs.device).poseidon_gl_leaf_sponge(
+        inputs.data_ptr(), out.data_ptr(), n, length, num_outputs,
+        _build.stream_ptr(inputs.device))
+    _build.check(err, "poseidon_gl_leaf_sponge")
+    launches["leaf_sponge"] += 1
+    return out
+
+
+def merkle_levels(d0: torch.Tensor, num_layers: int) -> List[torch.Tensor]:
+    """Digest levels above d0 (n, 4), as ``merkle_levels_plain``.  Levels
+    wider than TAIL_W digests are one launch each; the rest one launch."""
+    n = d0.shape[0]
+    if d0.ndim != 2 or d0.shape[1] != NUM_HASH_OUT or \
+            n & (n - 1) or n < (1 << num_layers):
+        raise ValueError(f"merkle_levels needs (2^k, 4) digests with "
+                         f"k >= {num_layers}, got {tuple(d0.shape)}")
+    if _on_cpu(d0, "merkle_levels"):
+        return merkle_levels_plain(d0, num_layers)
+    from . import _build
+
+    d0 = d0.contiguous()
+    _check_cuda(d0, "merkle_levels")
+    lib = _lib(d0.device)
+    stream = _build.stream_ptr(d0.device)
+    levels = []
+    cur = d0
+    layers_left = num_layers
+    while layers_left > 0 and cur.shape[0] > TAIL_W:
+        parents = cur.shape[0] // 2
+        out = torch.empty((parents, NUM_HASH_OUT), dtype=torch.int64,
+                          device=d0.device)
+        err = lib.poseidon_gl_merkle_level(cur.data_ptr(), out.data_ptr(),
+                                           parents, stream)
+        _build.check(err, "poseidon_gl_merkle_level")
+        launches["merkle_levels"] += 1
+        levels.append(out)
+        cur = out
+        layers_left -= 1
+    if layers_left > 0:
+        width = cur.shape[0]
+        sizes = [width >> (k + 1) for k in range(layers_left)]
+        out = torch.empty((sum(sizes), NUM_HASH_OUT), dtype=torch.int64,
+                          device=d0.device)
+        err = lib.poseidon_gl_merkle_tail(cur.data_ptr(), out.data_ptr(),
+                                          width, layers_left, stream)
+        _build.check(err, "poseidon_gl_merkle_tail")
+        launches["merkle_levels"] += 1
+        levels.extend(torch.split(out, sizes, dim=0))
+    return levels

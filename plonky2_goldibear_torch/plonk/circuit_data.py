@@ -1,0 +1,240 @@
+"""Circuit data and the carry-across loader (reference
+plonky2/src/plonk/circuit_data.rs:191-740).
+
+The port does not build circuits yet: a circuit and its witness reach it as
+data.  ``load_circuit`` takes the constants/sigmas values, the full wire
+matrix, the public inputs and the circuit metadata (config, FRI arities,
+gate ids, selector layout, coset shifts, digest, random wire), commits the
+constants/sigmas itself and returns a ``Circuit`` ready to prove.
+``load_fixture`` reads the same data from a fixture file written by
+``tests/test_torch_prove.py --write-fixtures``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import device as devmod
+from ..field import gl, host
+from ..fri.oracle import PolynomialBatch
+from ..gates import gate_from_id
+from ..gates.selectors import SelectorsInfo
+from .config import CircuitConfig, FriConfig, FriParams
+
+DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data")
+
+# FRI oracle indices (reference plonk/plonk_common.rs:19-41)
+ORACLE_CONSTANTS_SIGMAS = 0
+ORACLE_WIRES = 1
+ORACLE_ZS_PARTIAL_PRODUCTS = 2
+ORACLE_QUOTIENT = 3
+
+
+def fixture_path(degree_bits: int) -> str:
+    return os.path.join(DATA_DIR, f"arith_chain_2e{degree_bits}.npz")
+
+
+@dataclass
+class FriPolynomialInfo:
+    oracle_index: int
+    polynomial_index: int
+
+    @staticmethod
+    def from_range(oracle_index: int, start: int, end: int):
+        return [FriPolynomialInfo(oracle_index, i) for i in range(start, end)]
+
+
+@dataclass
+class FriBatchInfo:
+    point: Tuple[int, ...]               # extension point
+    polynomials: List[FriPolynomialInfo]
+    values: Optional[List[Tuple[int, ...]]] = None   # claimed openings
+
+
+@dataclass
+class FriInstanceInfo:
+    batches: List[FriBatchInfo]
+
+
+@dataclass
+class CommonCircuitData:
+    config: CircuitConfig
+    fri_params: FriParams
+    gates: List                      # sorted unique gates
+    selectors_info: SelectorsInfo
+    quotient_degree_factor: int
+    num_gate_constraints: int
+    num_constants: int               # selectors + constants
+    num_public_inputs: int
+    k_is: List[int]
+    num_partial_products: int
+    spec: host.FieldSpec = host.GOLDILOCKS
+
+    @property
+    def degree_bits(self) -> int:
+        return self.fri_params.degree_bits
+
+    @property
+    def degree(self) -> int:
+        return 1 << self.degree_bits
+
+    @property
+    def quotient_degree(self) -> int:
+        return self.quotient_degree_factor * self.degree
+
+    def constants_range(self):
+        return (0, self.num_constants)
+
+    def sigmas_range(self):
+        return (self.num_constants,
+                self.num_constants + self.config.num_routed_wires)
+
+    def zs_range(self):
+        return (0, self.config.num_challenges)
+
+    def partial_products_range(self):
+        return (self.config.num_challenges,
+                (self.num_partial_products + 1) * self.config.num_challenges)
+
+    def num_zs_partial_products_polys(self) -> int:
+        return (self.num_partial_products + 1) * self.config.num_challenges
+
+    def num_preprocessed_polys(self) -> int:
+        return self.sigmas_range()[1]
+
+    def num_quotient_polys(self) -> int:
+        return self.config.num_challenges * self.quotient_degree_factor
+
+    def get_fri_instance(self, zeta: Tuple[int, ...]) -> FriInstanceInfo:
+        """Two opening batches: everything at zeta, the Zs at g * zeta
+        (reference circuit_data.rs:658-706; no lookup polys)."""
+        all_polys = (
+            FriPolynomialInfo.from_range(ORACLE_CONSTANTS_SIGMAS, 0,
+                                         self.num_preprocessed_polys())
+            + FriPolynomialInfo.from_range(ORACLE_WIRES, 0,
+                                           self.config.num_wires)
+            + FriPolynomialInfo.from_range(
+                ORACLE_ZS_PARTIAL_PRODUCTS, 0,
+                self.num_zs_partial_products_polys())
+            + FriPolynomialInfo.from_range(ORACLE_QUOTIENT, 0,
+                                           self.num_quotient_polys()))
+        g = host.ext_from_base(self.spec,
+                               self.spec.two_adic_generator(self.degree_bits))
+        zeta_next = host.ext_mul(self.spec, g, zeta)
+        next_polys = FriPolynomialInfo.from_range(
+            ORACLE_ZS_PARTIAL_PRODUCTS, 0, self.config.num_challenges)
+        return FriInstanceInfo(batches=[
+            FriBatchInfo(point=tuple(zeta), polynomials=all_polys),
+            FriBatchInfo(point=tuple(zeta_next), polynomials=next_polys)])
+
+
+@dataclass
+class Circuit:
+    """A loaded circuit with its witness, on one device."""
+    common: CommonCircuitData
+    constants_sigmas_values: torch.Tensor     # (num_preprocessed, degree)
+    constants_sigmas_commitment: PolynomialBatch
+    wires: torch.Tensor               # (num_wires, degree) field tensor
+    public_inputs: List[int]
+    circuit_digest: List[int]
+    random_wire: Optional[Tuple[int, int]]   # (row, column)
+    device: torch.device
+
+    @property
+    def sigmas(self) -> torch.Tensor:
+        s0, s1 = self.common.sigmas_range()
+        return self.constants_sigmas_values[s0:s1]
+
+    def constants_sigmas_cap(self) -> List[List[int]]:
+        return self.constants_sigmas_commitment.cap_host()
+
+
+def _common_from_meta(meta: Dict) -> CommonCircuitData:
+    cfg = meta["config"]
+    fc = meta["fri_config"]
+    config = CircuitConfig(
+        num_wires=cfg["num_wires"],
+        num_routed_wires=cfg["num_routed_wires"],
+        num_constants=cfg["num_constants"],
+        use_base_arithmetic_gate=cfg["use_base_arithmetic_gate"],
+        security_bits=cfg["security_bits"],
+        num_challenges=cfg["num_challenges"],
+        zero_knowledge=cfg["zero_knowledge"],
+        max_quotient_degree_factor=cfg["max_quotient_degree_factor"],
+        fri_config=FriConfig(
+            rate_bits=fc["rate_bits"], cap_height=fc["cap_height"],
+            proof_of_work_bits=fc["proof_of_work_bits"],
+            num_query_rounds=fc["num_query_rounds"]))
+    if config.zero_knowledge:
+        raise ValueError("zero-knowledge circuits are not ported yet")
+    fri_params = FriParams(
+        config=config.fri_config, hiding=False,
+        degree_bits=meta["degree_bits"],
+        reduction_arity_bits=tuple(meta["reduction_arity_bits"]))
+    return CommonCircuitData(
+        config=config, fri_params=fri_params,
+        gates=[gate_from_id(g) for g in meta["gates"]],
+        selectors_info=SelectorsInfo(
+            selector_indices=list(meta["selector_indices"]),
+            groups=[tuple(g) for g in meta["selector_groups"]]),
+        quotient_degree_factor=meta["quotient_degree_factor"],
+        num_gate_constraints=meta["num_gate_constraints"],
+        num_constants=meta["num_constants"],
+        num_public_inputs=meta["num_public_inputs"],
+        k_is=[int(k) for k in meta["k_is"]],
+        num_partial_products=meta["num_partial_products"])
+
+
+def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
+                 device="cuda") -> Circuit:
+    """Carry a circuit and its witness across as data.
+
+    ``arrays``: ``constants_sigmas`` (num_constants + num_routed_wires, n)
+    values, ``wires`` (num_wires, n) and ``public_inputs`` (k,), all
+    canonical uint64.  ``meta``: the plain-Python metadata written by the
+    fixture writer.  Commits the constants/sigmas on ``device``; raises on a
+    gate id the port does not have."""
+    dev = devmod.resolve(device)
+    common = _common_from_meta(meta)
+    n = common.degree
+    cs = np.asarray(arrays["constants_sigmas"], dtype=np.uint64)
+    wires = np.asarray(arrays["wires"], dtype=np.uint64)
+    if cs.shape != (common.num_preprocessed_polys(), n):
+        raise ValueError(f"constants_sigmas has shape {cs.shape}")
+    if wires.shape != (common.config.num_wires, n):
+        raise ValueError(f"wires has shape {wires.shape}")
+    fc = common.config.fri_config
+    cs_values = gl.from_ints(cs, dev)
+    commitment = PolynomialBatch.from_values(cs_values, fc.rate_bits,
+                                             fc.cap_height)
+    return Circuit(
+        common=common, constants_sigmas_values=cs_values,
+        constants_sigmas_commitment=commitment,
+        wires=gl.from_ints(wires, dev),
+        public_inputs=[int(v) for v in arrays["public_inputs"]],
+        circuit_digest=[int(v) for v in meta["circuit_digest"]],
+        random_wire=tuple(meta["random_wire"]) if meta.get("random_wire")
+        else None,
+        device=dev)
+
+
+def read_fixture(path: str):
+    """(arrays, meta) of a fixture file."""
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files if k != "meta"}
+        meta = json.loads(str(z["meta"]))
+    return arrays, meta
+
+
+def load_fixture(degree_bits: int, device="cuda"):
+    """The committed arithmetic-chain fixture: (circuit, arrays) where
+    arrays also hold the JAX proof (``proof_<phase>`` keys)."""
+    arrays, meta = read_fixture(fixture_path(degree_bits))
+    return load_circuit(arrays, meta, device), arrays

@@ -1,0 +1,61 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Run on a machine with an NVIDIA GPU and nvcc:
+
+    python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu -q
+
+(``--noconftest``: ``tests/conftest.py`` imports jax, which a machine set
+up for the port need not have.)  Without a card every test here skips.  Tolerance zero: exact field
+arithmetic.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from plonky2_goldibear_torch.field import gl
+from plonky2_goldibear_torch.ops import ntt
+from plonky2_goldibear_torch.ops import poseidon_gl as K
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+def _rand(device, *shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return gl.from_ints(rng.integers(0, gl.P, size=shape, dtype=np.uint64),
+                        device)
+
+
+@pytest.mark.parametrize("batch,n_log,r", [(3, 1, 0), (5, 8, 2), (4, 12, 0),
+                                           (2, 15, 3), (1, 25, 0)])
+def test_ntt_kernel(cuda, batch, n_log, r):
+    x = _rand(cuda, batch, 1 << n_log, seed=n_log)
+    x[:, (1 << n_log) >> r:] = 0
+    assert torch.equal(ntt.fft(x, r), ntt.fft_plain(x, r))
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 1 << 17])
+def test_permute_kernel(cuda, n):
+    s = _rand(cuda, n, 12, seed=n)
+    assert torch.equal(K.permute(s), K.permute_plain(s))
+
+
+@pytest.mark.parametrize("n,length", [(5, 1), (33, 8), (100, 135), (64, 32)])
+def test_leaf_sponge_kernel(cuda, n, length):
+    s = _rand(cuda, n, length, seed=length)
+    assert torch.equal(K.hash_leaves(s), K.hash_leaves_plain(s))
+
+
+@pytest.mark.parametrize("n,layers", [(16, 4), (1024, 6), (1 << 15, 11)])
+def test_merkle_levels_kernel(cuda, n, layers):
+    d = _rand(cuda, n, 4, seed=n)
+    got, ref = K.merkle_levels(d, layers), K.merkle_levels_plain(d, layers)
+    assert len(got) == len(ref) == layers
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))

@@ -1,0 +1,274 @@
+"""The port's prover as a whole against the JAX prover, on a committed
+fixture.
+
+The fixture holds an arithmetic-chain circuit built by the JAX package
+(constants/sigmas values, the full wire matrix, the circuit metadata) and
+the JAX proof of it under ``set_nonrandom(True)``.  The port loads the
+circuit as data, recommits the constants/sigmas, proves on the CPU and must
+reproduce every phase of the JAX proof bit for bit.
+
+Regenerate the fixtures with the JAX package on the CPU.  The 2^6 one takes
+about a quarter of an hour; the 2^12 one about three hours even without the
+device-transcript comparison, nearly all of it in the JAX PoseidonGate
+quotient program on XLA:CPU:
+
+    python tests/test_torch_prove.py --write-fixtures 6
+    python tests/test_torch_prove.py --write-fixtures --sync-only 12
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+FIXTURE_SIZES = (6, 12)
+
+
+# --------------------------------------------------------------------------
+# the port against the committed 2^6 fixture (CPU)
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def proved():
+    import torch
+
+    from plonky2_goldibear_torch.plonk import prover
+    from plonky2_goldibear_torch.plonk.circuit_data import load_fixture
+    from plonky2_goldibear_torch.plonk.proof import flatten_proof
+
+    torch.set_num_threads(1)
+    circuit, arrays = load_fixture(6, device="cpu")
+    proof = prover.prove(circuit, device="cpu")
+    return circuit, arrays, flatten_proof(proof)
+
+
+def test_constants_sigmas_cap_matches_jax(proved):
+    circuit, arrays, _ = proved
+    np.testing.assert_array_equal(
+        np.asarray(circuit.constants_sigmas_cap(), dtype=np.uint64),
+        arrays["constants_sigmas_cap"])
+
+
+@pytest.mark.parametrize("phase", [
+    "public_inputs", "wires_cap", "zs_pp_cap", "quotient_cap", "openings",
+    "fri_caps", "final_poly", "pow_witness", "query_rounds"])
+def test_proof_phase_matches_jax(proved, phase):
+    _, arrays, flat = proved
+    np.testing.assert_array_equal(flat[phase], arrays["proof_" + phase])
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imports neither jax nor
+    the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import plonky2_goldibear_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('plonky2_goldibear_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith("
+        "'plonky2_goldibear_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_prove_without_device_needs_a_gpu():
+    import torch
+
+    from plonky2_goldibear_torch.plonk import prover
+    from plonky2_goldibear_torch.plonk.circuit_data import (load_circuit,
+                                                            read_fixture,
+                                                            fixture_path)
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    arrays, meta = read_fixture(fixture_path(6))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_circuit(arrays, meta)
+    circuit = load_circuit(arrays, meta, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prover.prove(circuit)
+
+
+def test_load_circuit_rejects_unported_gate():
+    from plonky2_goldibear_torch.plonk.circuit_data import (load_circuit,
+                                                            read_fixture,
+                                                            fixture_path)
+
+    arrays, meta = read_fixture(fixture_path(6))
+    meta = dict(meta, gates=meta["gates"] + ["LookupGate { num_slots: 26 }"])
+    with pytest.raises(ValueError, match="not ported"):
+        load_circuit(arrays, meta, device="cpu")
+
+
+# --------------------------------------------------------------------------
+# fixture writer (JAX side; run as a script)
+# --------------------------------------------------------------------------
+
+
+def _build_arith_chain(config, target_degree_bits):
+    """The ArithmeticGate chain of ``bench.py:_build_arith_chain``: one
+    public input, a chain of x*x + x ops filling 2^target_degree_bits rows
+    less a few for the public-input hash, constants and padding."""
+    from plonky2_goldibear_tpu.plonk.builder import CircuitBuilder
+
+    builder = CircuitBuilder(config)
+    x = builder.add_virtual_target()
+    builder.register_public_input(x)
+    cur = x
+    ops_per_gate = config.num_routed_wires // 4
+    for _ in range(((1 << target_degree_bits) - 8) * ops_per_gate):
+        cur = builder.arithmetic(1, 1, cur, cur, cur)
+    builder.register_public_input(cur)
+    data = builder.build()
+    assert data.common.degree_bits == target_degree_bits, \
+        data.common.degree_bits
+    return data, x
+
+
+def _circuit_meta(data) -> dict:
+    common = data.common
+    cfg = common.config
+    fc = cfg.fri_config
+    po = data.prover_only
+    return {
+        "config": {
+            "num_wires": cfg.num_wires,
+            "num_routed_wires": cfg.num_routed_wires,
+            "num_constants": cfg.num_constants,
+            "use_base_arithmetic_gate": cfg.use_base_arithmetic_gate,
+            "security_bits": cfg.security_bits,
+            "num_challenges": cfg.num_challenges,
+            "zero_knowledge": cfg.zero_knowledge,
+            "max_quotient_degree_factor": cfg.max_quotient_degree_factor,
+        },
+        "fri_config": {
+            "rate_bits": fc.rate_bits,
+            "cap_height": fc.cap_height,
+            "proof_of_work_bits": fc.proof_of_work_bits,
+            "num_query_rounds": fc.num_query_rounds,
+        },
+        "reduction_arity_bits": list(common.fri_params.reduction_arity_bits),
+        "degree_bits": common.degree_bits,
+        "gates": [g.id() for g in common.gates],
+        "selector_indices": list(common.selectors_info.selector_indices),
+        "selector_groups": [list(g) for g in common.selectors_info.groups],
+        "k_is": [int(k) for k in common.k_is],
+        "num_partial_products": common.num_partial_products,
+        "quotient_degree_factor": common.quotient_degree_factor,
+        "num_gate_constraints": common.num_gate_constraints,
+        "num_constants": common.num_constants,
+        "num_public_inputs": common.num_public_inputs,
+        "circuit_digest": [int(v) for v in po.circuit_digest],
+        "random_wire": [int(v) for v in po.random_wire],
+    }
+
+
+def write_fixture(degree_bits: int, path: str,
+                  compare_async: bool = True) -> None:
+    """Build the circuit, export its data and witness, prove it on the JAX
+    sync-transcript path (the one the port mirrors), verify, and write the
+    fixture.  Then, unless ``compare_async`` is off, prove again on the
+    JAX device-transcript path and report any field that differs."""
+    from plonky2_goldibear_tpu.field import fft as jfft
+    from plonky2_goldibear_tpu.field import gl as jgl
+    from plonky2_goldibear_tpu.iop import generator as gen
+    from plonky2_goldibear_tpu.iop.witness import PartialWitness
+    from plonky2_goldibear_tpu.plonk.config import CircuitConfig
+    from plonky2_goldibear_tpu.plonk.verifier import verify
+    from plonky2_goldibear_tpu.plonk.witness_transfer import WitnessTransfer
+    from plonky2_goldibear_tpu.utils.timing import ProvingProcessInfo
+
+    from plonky2_goldibear_torch.plonk.proof import flatten_proof
+
+    gen.set_nonrandom(True)
+    data, x = _build_arith_chain(
+        CircuitConfig.standard_recursion_config_gl(), degree_bits)
+    common, po = data.common, data.prover_only
+    pw = PartialWitness()
+    pw.set_target(x, 3)
+
+    gen.set_nonrandom(True)
+    part = gen.generate_partial_witness(pw, po, common)
+    public_inputs = part.get_targets(po.public_inputs)
+    wires = WitnessTransfer(jgl, part, po, common, dense=True).matrix
+    cs_values = jgl.to_ints(jfft.fft(
+        jgl, po.constants_sigmas_commitment.coeffs))
+
+    arrays = {
+        "constants_sigmas": np.asarray(cs_values, dtype=np.uint64),
+        "wires": np.asarray(wires, dtype=np.uint64),
+        "public_inputs": np.asarray(public_inputs, dtype=np.uint64),
+        "constants_sigmas_cap": np.asarray(
+            data.verifier_only.constants_sigmas_cap, dtype=np.uint64),
+    }
+    gen.set_nonrandom(True)
+    proof_sync = data.prove(pw, timing=ProvingProcessInfo("prove"))
+    verify(proof_sync, data.verifier_only, common)
+    flat_sync = flatten_proof(proof_sync)
+    assert [int(v) for v in flat_sync["public_inputs"]] == \
+        [int(v) for v in public_inputs]
+    for k, v in flat_sync.items():
+        arrays["proof_" + k] = v
+    meta = json.dumps(_circuit_meta(data))
+    np.savez_compressed(path, meta=np.array(meta), **arrays)
+    print(f"wrote {path} ({os.path.getsize(path)} bytes)", flush=True)
+
+    if compare_async:
+        gen.set_nonrandom(True)
+        proof_async = data.prove(pw)
+        verify(proof_async, data.verifier_only, common)
+        flat_async = flatten_proof(proof_async)
+        differ = [k for k in flat_sync
+                  if not np.array_equal(flat_sync[k], flat_async[k])]
+        print(f"2^{degree_bits}: JAX sync and device-transcript proofs "
+              + (f"differ in {differ}" if differ else "are equal"),
+              flush=True)
+
+
+def _write_fixtures(args) -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if cache:
+        jax.config.update("jax_compilation_cache_dir", cache)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from plonky2_goldibear_torch.plonk.circuit_data import fixture_path
+
+    for bits in args.sizes or FIXTURE_SIZES:
+        write_fixture(bits, fixture_path(bits), not args.sync_only)
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Write the port's prover fixtures from the JAX package "
+                    "(or, without --write-fixtures, run these tests).")
+    ap.add_argument("--write-fixtures", action="store_true")
+    ap.add_argument("--sync-only", action="store_true",
+                    help="skip the device-transcript comparison prove")
+    ap.add_argument("sizes", nargs="*", type=int,
+                    help="log2 rows (default: 6 12)")
+    cli = ap.parse_args()
+    if cli.write_fixtures:
+        _write_fixtures(cli)
+    else:
+        sys.exit(pytest.main([__file__, "-q"]))
