@@ -1,20 +1,23 @@
-"""Quadratic extension GF(p^2) = GF(p)[X]/(X^2 - 7) over Goldilocks tensors.
+"""Binomial extensions F_p[X]/(X^D - W) over the torch base fields: gl2
+(Goldilocks, X^2 - 7) and bb4 (BabyBear, X^4 - 11).
 
-An extension array is a tuple of D = 2 base-field tensors (struct of
-arrays), as in the JAX package's ``field/ext.py``; the host semantic
-reference is ``host.ext_*``.
+An extension array is a tuple of D base-field tensors (struct of arrays),
+as in the JAX package's ``field/ext.py``; the host semantic reference is
+``host.ext_*``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import bb as bb_mod
 from . import gl as gl_mod
 from . import host
 
 
 class ExtOps:
-    """Extension-field operations over the torch base-field module ``gl``."""
+    """Extension-field operations over a torch base-field module (``gl`` or
+    ``bb``)."""
 
     def __init__(self, base, spec: host.FieldSpec):
         self.base = base
@@ -78,3 +81,9 @@ class ExtOps:
 
 
 gl2 = ExtOps(gl_mod, host.GOLDILOCKS)
+bb4 = ExtOps(bb_mod, host.BABYBEAR)
+
+
+def ext_ops(F) -> ExtOps:
+    """The extension over base-field module ``F``."""
+    return gl2 if F is gl_mod else bb4

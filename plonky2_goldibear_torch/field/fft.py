@@ -1,4 +1,6 @@
-"""NTT / iFFT / coset LDE over Goldilocks, batched over leading axes.
+"""NTT / iFFT / coset LDE over the two-adic fields, batched over leading
+axes, generic over the torch field module ``F`` (``gl`` or ``bb``; the
+Goldilocks module by default).
 
 Conventions (the reference's, field/src/fft.rs:50-94):
 - ``fft(coeffs)[k] = p(g^k)`` with g = two_adic_generator(log n), natural
@@ -9,9 +11,10 @@ Conventions (the reference's, field/src/fft.rs:50-94):
   generator coset, with the padding virtual: the NTT skips its first
   rate_bits stages (field/src/fft.rs:168-205).
 
-Every transform goes through ``ops/ntt.py:fft``: the CUDA kernel for a CUDA
-tensor, its plain version for a CPU tensor.  Extension values are tuples of
-base tensors; their transforms are componentwise.
+Every transform goes through ``ops/ntt.py:fft`` (Goldilocks) or
+``ops/ntt_bb.py:fft`` (BabyBear): the CUDA kernel for a CUDA tensor, its
+plain version for a CPU tensor.  Extension values are tuples of base
+tensors; their transforms are componentwise.
 """
 
 from __future__ import annotations
@@ -19,63 +22,66 @@ from __future__ import annotations
 import torch
 
 from ..ops import ntt as ntt_ops
+from ..ops import ntt_bb as ntt_bb_ops
 from . import gl, host
 
 reverse_index_bits = ntt_ops.reverse_index_bits
 powers = ntt_ops.powers
 
 
-def fft(x: torch.Tensor, zero_prefix_log: int = 0) -> torch.Tensor:
+def fft(x: torch.Tensor, zero_prefix_log: int = 0, F=gl) -> torch.Tensor:
     """Forward NTT over the last axis of (..., n)."""
-    return ntt_ops.fft(x, zero_prefix_log)
+    ops = ntt_ops if F is gl else ntt_bb_ops
+    return ops.fft(x, zero_prefix_log)
 
 
-def ifft(x: torch.Tensor) -> torch.Tensor:
+def ifft(x: torch.Tensor, F=gl) -> torch.Tensor:
     """Inverse NTT: values (..., n) -> coefficients."""
     n = x.shape[-1]
-    y = fft(x)
+    y = fft(x, F=F)
     idx = (n - torch.arange(n, device=x.device)) & (n - 1)
-    return gl.mul_const(y[..., idx], host.finv(n, gl.P))
+    return F.mul_const(y[..., idx], host.finv(n, F.P))
 
 
-def coset_fft(coeffs: torch.Tensor, shift: int) -> torch.Tensor:
+def coset_fft(coeffs: torch.Tensor, shift: int, F=gl) -> torch.Tensor:
     """Evaluations on the coset shift * <g>: fft(shift^i c_i)."""
     n = coeffs.shape[-1]
-    return fft(gl.mul(coeffs, powers(shift, n, coeffs.device)))
+    return fft(F.mul(coeffs, powers(shift, n, coeffs.device, F)), F=F)
 
 
-def coset_ifft(values: torch.Tensor, shift: int) -> torch.Tensor:
+def coset_ifft(values: torch.Tensor, shift: int, F=gl) -> torch.Tensor:
     """Inverse of coset_fft."""
     n = values.shape[-1]
-    coeffs = ifft(values)
-    shift_inv = host.finv(shift % gl.P, gl.P)
-    return gl.mul(coeffs, powers(shift_inv, n, values.device))
+    coeffs = ifft(values, F)
+    shift_inv = host.finv(shift % F.P, F.P)
+    return F.mul(coeffs, powers(shift_inv, n, values.device, F))
 
 
-def lde_coset_fft(coeffs: torch.Tensor, rate_bits: int) -> torch.Tensor:
+def lde_coset_fft(coeffs: torch.Tensor, rate_bits: int, F=gl
+                  ) -> torch.Tensor:
     """Low-degree extension (num_polys, n) -> (num_polys, n << rate_bits) on
     the generator coset (the PolynomialBatch commit path, reference
     fri/oracle.rs:125-150)."""
     n = coeffs.shape[-1]
-    scaled = gl.mul(coeffs, powers(gl.SPEC.coset_shift, n, coeffs.device))
+    scaled = F.mul(coeffs, powers(F.SPEC.coset_shift, n, coeffs.device, F))
     padded = torch.nn.functional.pad(scaled, (0, (n << rate_bits) - n))
-    return fft(padded, zero_prefix_log=rate_bits)
+    return fft(padded, zero_prefix_log=rate_bits, F=F)
 
 
 # -- extension-field transforms (componentwise over the base field) ---------
 
 
-def ext_fft(x):
-    return tuple(fft(c) for c in x)
+def ext_fft(x, F=gl):
+    return tuple(fft(c, F=F) for c in x)
 
 
-def ext_ifft(x):
-    return tuple(ifft(c) for c in x)
+def ext_ifft(x, F=gl):
+    return tuple(ifft(c, F) for c in x)
 
 
-def ext_coset_fft(x, shift: int):
-    return tuple(coset_fft(c, shift) for c in x)
+def ext_coset_fft(x, shift: int, F=gl):
+    return tuple(coset_fft(c, shift, F) for c in x)
 
 
-def ext_coset_ifft(x, shift: int):
-    return tuple(coset_ifft(c, shift) for c in x)
+def ext_coset_ifft(x, shift: int, F=gl):
+    return tuple(coset_ifft(c, shift, F) for c in x)

@@ -6,6 +6,7 @@ from .base import Gate
 from .basic_gates import ArithmeticGate, ConstantGate, NoopGate, \
     PublicInputGate
 from .poseidon import PoseidonGate
+from .poseidon2_bb_gate import Poseidon2BabyBearGate
 
 _PATTERNS = [
     (re.compile(r"ArithmeticGate \{ num_ops: (\d+) \}"),
@@ -16,6 +17,10 @@ _PATTERNS = [
      lambda m: PublicInputGate(int(m.group(1)))),
     (re.compile(r"NoopGate"), lambda m: NoopGate()),
     (re.compile(r"PoseidonGate<WIDTH=12>"), lambda m: PoseidonGate()),
+    (re.compile(r"Poseidon2BabyBearGate \{ num_ops: (\d+), _phantom: "
+                r"PhantomData<p3_baby_bear::baby_bear::BabyBear> \}"
+                r"<WIDTH=16>"),
+     lambda m: Poseidon2BabyBearGate(int(m.group(1)))),
 ]
 
 

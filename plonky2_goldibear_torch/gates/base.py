@@ -3,10 +3,10 @@
 
 A gate evaluates its constraints over every point of the quotient domain
 at once (the reference's ``eval_unfiltered_base_batch``, batched over the
-whole domain): ``eval_unfiltered_device(wires, constants, pi_hash)`` takes
-the stacked wires (num_wires, m), the gate constants (k, m) and the
-public-input hash (4 scalar tensors) and returns a (num_constraints, m)
-tensor.
+whole domain): ``eval_unfiltered_device(F, wires, constants, pi_hash)``
+takes the field module ``F`` (``gl`` or ``bb``), the stacked wires
+(num_wires, m), the gate constants (k, m) and the public-input hash (4 or
+8 scalar tensors) and returns a (num_constraints, m) tensor.
 
 Selector filtering (reference gate.rs:391-430): filter = prod over the
 gate's selector group of (i - s), times (UNUSED - s) when the circuit has
@@ -34,7 +34,7 @@ class Gate:
     def num_constraints(self) -> int:
         raise NotImplementedError
 
-    def eval_unfiltered_device(self, wires: torch.Tensor,
+    def eval_unfiltered_device(self, F, wires: torch.Tensor,
                                constants: torch.Tensor,
                                pi_hash) -> torch.Tensor:
         raise NotImplementedError
@@ -50,13 +50,13 @@ class Gate:
 
 
 def compute_filter(row: int, group_range, s: torch.Tensor,
-                   many_selector: bool) -> torch.Tensor:
+                   many_selector: bool, F=gl) -> torch.Tensor:
     """prod_{i in group, i != row} (i - s), times (UNUSED - s) when the
     circuit has several selectors (reference gate.rs:391-431)."""
     consts = [i for i in range(group_range[0], group_range[1]) if i != row]
     if many_selector:
-        consts.append(UNUSED_SELECTOR % gl.P)
+        consts.append(UNUSED_SELECTOR % F.P)
     if not consts:
-        return gl.ones((), s.device)
-    terms = gl.sub(gl.from_ints(consts, s.device)[:, None], s[None, :])
-    return gl.batch_prod(terms, axis=0)
+        return F.ones((), s.device)
+    terms = F.sub(F.from_ints(consts, s.device)[:, None], s[None, :])
+    return F.batch_prod(terms, axis=0)

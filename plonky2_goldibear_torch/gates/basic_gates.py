@@ -7,7 +7,6 @@ from __future__ import annotations
 
 import torch
 
-from ..field import gl
 from .base import Gate
 
 
@@ -24,12 +23,12 @@ class ArithmeticGate(Gate):
     def num_constraints(self):
         return self.num_ops
 
-    def eval_unfiltered_device(self, wires, constants, pi_hash):
+    def eval_unfiltered_device(self, F, wires, constants, pi_hash):
         w = wires[:4 * self.num_ops].reshape(self.num_ops, 4, -1)
         m0, m1, addend, out = w.unbind(1)
-        computed = gl.add(gl.mul(gl.mul(m0, m1), constants[0]),
-                          gl.mul(addend, constants[1]))
-        return gl.sub(out, computed)
+        computed = F.add(F.mul(F.mul(m0, m1), constants[0]),
+                         F.mul(addend, constants[1]))
+        return F.sub(out, computed)
 
 
 class ConstantGate(Gate):
@@ -45,9 +44,9 @@ class ConstantGate(Gate):
     def num_constraints(self):
         return self.num_consts
 
-    def eval_unfiltered_device(self, wires, constants, pi_hash):
+    def eval_unfiltered_device(self, F, wires, constants, pi_hash):
         k = self.num_consts
-        return gl.sub(constants[:k], wires[:k])
+        return F.sub(constants[:k], wires[:k])
 
 
 class PublicInputGate(Gate):
@@ -63,8 +62,8 @@ class PublicInputGate(Gate):
     def num_constraints(self):
         return self.n
 
-    def eval_unfiltered_device(self, wires, constants, pi_hash):
-        return gl.sub(wires[:self.n], torch.stack(list(pi_hash))[:, None])
+    def eval_unfiltered_device(self, F, wires, constants, pi_hash):
+        return F.sub(wires[:self.n], torch.stack(list(pi_hash))[:, None])
 
 
 class NoopGate(Gate):
@@ -76,5 +75,5 @@ class NoopGate(Gate):
     def num_constraints(self):
         return 0
 
-    def eval_unfiltered_device(self, wires, constants, pi_hash):
-        return gl.zeros((0, wires.shape[-1]), wires.device)
+    def eval_unfiltered_device(self, F, wires, constants, pi_hash):
+        return F.zeros((0, wires.shape[-1]), wires.device)

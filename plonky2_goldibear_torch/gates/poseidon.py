@@ -71,9 +71,11 @@ class PoseidonGate(Gate):
     def num_constraints(self):
         return W * (2 * HALF - 1) + NP + W + 1 + 4
 
-    def eval_unfiltered_device(self, wires: torch.Tensor, constants,
+    def eval_unfiltered_device(self, F, wires: torch.Tensor, constants,
                                pi_hash) -> torch.Tensor:
-        """Constraints (123, m) over stacked wires (num_wires, m)."""
+        """Constraints (123, m) over stacked Goldilocks wires
+        (num_wires, m)."""
+        assert F is gl, "PoseidonGate is a Goldilocks gate"
         k = _consts(str(wires.device))
 
         def mds(state):                       # (12, m) -> (12, m)

@@ -1,0 +1,94 @@
+"""Poseidon2BabyBearGate, constraint side: width-16 Poseidon2 permutations
+in one row, each with a conditional-swap flag (reference
+plonky2/src/gates/poseidon2_babybear.rs; the JAX package's
+``gates/poseidon2_bb_gate.py``).
+
+Wire layout per op (reference :44-90): 33 routed wires (16 inputs, 16
+outputs, the swap flag), then after all ops' routed wires, 133 per op: 8
+swap deltas, the 16 S-box inputs of full rounds 1..3, the 13 partial-round
+S-box inputs, the 16 S-box inputs of full rounds 4..7.  The constraints
+re-run the permutation between the stored S-box inputs, vectorised over
+the 16 lanes and every point of the quotient domain, in the JAX package's
+order (``eval_unfiltered_device``): the swap bit, the 8 deltas, 48 + 13 +
+64 S-box inputs, 16 outputs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..field import bb
+from ..hash import _poseidon2_bb_constants as C
+from ..ops import poseidon2_bb as P2
+from .base import Gate
+
+W = C.SPONGE_WIDTH            # 16
+CAP = C.SPONGE_CAPACITY       # 8
+HALF = C.HALF_N_FULL_ROUNDS   # 4
+NP = C.N_PARTIAL_ROUNDS       # 13
+ROUTED_PER_OP = 2 * W + 1
+NON_ROUTED_PER_OP = CAP + W * (C.N_FULL_ROUNDS_TOTAL - 1) + NP
+
+
+class Poseidon2BabyBearGate(Gate):
+    def __init__(self, num_ops: int):
+        self.num_ops = num_ops
+
+    def id(self):
+        return (f"Poseidon2BabyBearGate {{ num_ops: {self.num_ops}, "
+                f"_phantom: PhantomData<p3_baby_bear::baby_bear::BabyBear> "
+                f"}}<WIDTH={W}>")
+
+    def num_constraints(self):
+        return self.num_ops * (1 + CAP + W * (C.N_FULL_ROUNDS_TOTAL - 1)
+                               + NP + W)
+
+    def _start_delta(self, op):
+        return self.num_ops * ROUTED_PER_OP + op * NON_ROUTED_PER_OP
+
+    def eval_unfiltered_device(self, F, wires: torch.Tensor, constants,
+                               pi_hash) -> torch.Tensor:
+        """Constraints (150 num_ops, m) over stacked BabyBear wires
+        (num_wires, m)."""
+        assert F is bb, "Poseidon2BabyBearGate is a BabyBear gate"
+        ext_rc, int_rc = P2._tables(str(wires.device))
+        one = F.ones((), wires.device)
+        constraints = []
+        for op in range(self.num_ops):
+            base = ROUTED_PER_OP * op
+            inputs = wires[base:base + W]
+            outputs = wires[base + W:base + 2 * W]
+            swap = wires[base + 2 * W]
+            d0 = self._start_delta(op)
+            deltas = wires[d0:d0 + CAP]
+            f0 = d0 + CAP
+            full0_w = wires[f0:f0 + W * (HALF - 1)].reshape(HALF - 1, W, -1)
+            p0 = f0 + W * (HALF - 1)
+            partial_w = wires[p0:p0 + NP]
+            f1 = p0 + NP
+            full1_w = wires[f1:f1 + W * HALF].reshape(HALF, W, -1)
+
+            constraints.append(F.mul(swap, F.sub(swap, one))[None])
+            lhs, rhs = inputs[:CAP], inputs[CAP:]
+            constraints.append(F.sub(F.mul(swap[None], F.sub(rhs, lhs)),
+                                     deltas))
+
+            state = torch.cat([F.add(lhs, deltas), F.sub(rhs, deltas)])
+            state = P2.full_round(P2.external_layer(state), 0)
+            for r in range(1, HALF):
+                constraints.append(F.sub(F.add(state, ext_rc[r]),
+                                         full0_w[r - 1]))
+                state = P2.external_layer(P2.sbox(full0_w[r - 1]))
+            for r in range(NP):
+                constraints.append(F.sub(F.add(state[0], int_rc[r]),
+                                         partial_w[r])[None])
+                state = P2.internal_layer(
+                    torch.cat([P2.sbox(partial_w[r])[None], state[1:]]))
+            for r in range(HALF):
+                constraints.append(F.sub(F.add(state, ext_rc[HALF + r]),
+                                         full1_w[r]))
+                state = P2.external_layer(P2.sbox(full1_w[r]))
+            constraints.append(F.sub(state, outputs))
+        out = torch.cat(constraints)
+        assert out.shape[0] == self.num_constraints()
+        return out

@@ -11,7 +11,9 @@ Element-exact port of the reference semantics
   permutes, and refills the output buffer with state[0..RATE].
 
 The transcript is tiny and sequential, so it runs on the host between the
-device phases, as in the reference.
+device phases, as in the reference.  It works on canonical ints with the
+hasher's host permutation: Poseidon-GL (width 12, rate 8) or Poseidon2-BB
+(width 16, rate 8).
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ from . import poseidon_gl
 
 
 class Challenger:
-    def __init__(self, spec: host.FieldSpec = host.GOLDILOCKS):
-        self.permute = poseidon_gl.permute_host
-        self.width = poseidon_gl.WIDTH
-        self.rate = poseidon_gl.RATE
+    def __init__(self, spec: host.FieldSpec = host.GOLDILOCKS,
+                 hasher=poseidon_gl):
+        self.permute = hasher.permute_host
+        self.width = hasher.WIDTH
+        self.rate = hasher.RATE
         self.spec = spec
         self.sponge_state: List[int] = [0] * self.width
         self.input_buffer: List[int] = []

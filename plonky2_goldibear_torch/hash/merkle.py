@@ -5,7 +5,9 @@ Leaf digest = hash_or_noop(leaf row), parent = two_to_one(left, right);
 the cap (the level of 2^cap_height nodes) replaces the root, and a proof is
 the sibling chain up to (excluding) the cap.  One dense digest tensor per
 level in natural node order; on a CUDA tensor the leaf digests come from
-the leaf-sponge kernel and the levels from the Merkle-level kernel.
+the leaf-sponge kernel and the levels from the Merkle-level kernel of the
+hasher (``hash/poseidon_gl.py`` or ``hash/poseidon2_bb.py``; digests of 4
+or 8 elements).
 """
 
 from __future__ import annotations
@@ -14,31 +16,34 @@ from typing import List, Sequence
 
 import torch
 
-from ..field import gl
 from ..field.host import log2_strict
-from ..ops import poseidon_gl as K
 from . import poseidon_gl
 
 
-def build_levels(leaves: torch.Tensor, num_layers: int) -> List[torch.Tensor]:
-    """Leaves (n, leaf_len) -> [digests (n, 4), level 1, ..., cap]."""
-    d0 = poseidon_gl.hash_or_noop(leaves)
-    return [d0] + K.merkle_levels(d0, num_layers)
+def build_levels(leaves: torch.Tensor, num_layers: int,
+                 hasher=poseidon_gl) -> List[torch.Tensor]:
+    """Leaves (n, leaf_len) -> [digests (n, NUM_HASH_OUT), level 1, ...,
+    cap]."""
+    d0 = hasher.hash_or_noop(leaves)
+    return [d0] + hasher.merkle_levels(d0, num_layers)
 
 
 class MerkleTree:
     """Merkle tree over field leaves (n_leaves, leaf_len)."""
 
-    def __init__(self, leaves: torch.Tensor, cap_height: int):
+    def __init__(self, leaves: torch.Tensor, cap_height: int,
+                 hasher=poseidon_gl):
+        self.hasher = hasher
+        self.F = hasher.F
         self.leaves = leaves
         depth = log2_strict(leaves.shape[0])
         assert cap_height <= depth, (cap_height, depth)
         self.num_layers = depth - cap_height
-        self.levels = build_levels(leaves, self.num_layers)
+        self.levels = build_levels(leaves, self.num_layers, hasher)
         self.cap = self.levels[-1]
 
     def cap_host(self) -> List[List[int]]:
-        return [[int(x) for x in row] for row in gl.to_ints(self.cap)]
+        return [[int(x) for x in row] for row in self.F.to_ints(self.cap)]
 
     def prove_batch(self, leaf_indices: Sequence[int]) -> List[List]:
         """Sibling chains for many leaves, one gather per level and one
@@ -51,11 +56,11 @@ class MerkleTree:
         for lv in self.levels[:self.num_layers]:
             gathers.append(lv[idx ^ 1])
             idx = idx >> 1
-        flat = gl.to_ints(torch.stack(gathers, dim=1))   # (nq, layers, 4)
+        flat = self.F.to_ints(torch.stack(gathers, dim=1))  # (nq, layers, d)
         return [[[int(x) for x in sib] for sib in chain] for chain in flat]
 
     def leaf_batch(self, leaf_indices: Sequence[int]) -> List[List[int]]:
         idx = torch.as_tensor(list(leaf_indices), dtype=torch.int64,
                               device=self.leaves.device)
-        rows = gl.to_ints(self.leaves[idx])
+        rows = self.F.to_ints(self.leaves[idx])
         return [[int(x) for x in row] for row in rows]

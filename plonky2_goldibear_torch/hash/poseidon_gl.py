@@ -18,15 +18,18 @@ from typing import List, Sequence
 
 import torch
 
+from ..field import gl
 from ..field.host import GOLDILOCKS
 from ..ops import poseidon_gl as K
 from . import _poseidon_gl_constants as C
 
+F = gl
 P = GOLDILOCKS.p
 WIDTH = C.SPONGE_WIDTH
 RATE = C.SPONGE_RATE
 NUM_HASH_OUT = GOLDILOCKS.num_hash_out_elts  # 4
 _MDS = K._MDS
+merkle_levels = K.merkle_levels
 
 
 # --------------------------------------------------------------------------

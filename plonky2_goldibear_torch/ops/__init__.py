@@ -1,20 +1,25 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch
-version: the Goldilocks NTT (``ntt``) and the Poseidon-GL permutation, leaf
-sponge and Merkle levels (``poseidon_gl``)."""
+version: the NTT of either field (``ntt``, ``ntt_bb``), the Poseidon-GL
+permutation, leaf sponge and Merkle levels (``poseidon_gl``) and the
+Poseidon2-BabyBear ones (``poseidon2_bb``)."""
 
 from typing import Dict
 
 
+def _modules():
+    from . import ntt, ntt_bb, poseidon2_bb, poseidon_gl
+
+    return ntt, ntt_bb, poseidon_gl, poseidon2_bb
+
+
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    from . import ntt, poseidon_gl
-
-    ntt.reset_launches()
-    poseidon_gl.reset_launches()
+    for mod in _modules():
+        mod.reset_launches()
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset."""
-    from . import ntt, poseidon_gl
-
-    return {"ntt": ntt.launches, **poseidon_gl.launches}
+    ntt, ntt_bb, poseidon_gl, poseidon2_bb = _modules()
+    return {"ntt": ntt.launches, "ntt_bb": ntt_bb.launches,
+            **poseidon_gl.launches, **poseidon2_bb.launches}

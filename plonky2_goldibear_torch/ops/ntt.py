@@ -1,18 +1,19 @@
-"""Batched Goldilocks NTT: the CUDA kernel ``csrc/ntt_gl.cu`` and its plain
-torch version.
+"""Batched NTT: the Goldilocks CUDA kernel ``csrc/ntt_gl.cu``, and the
+plain torch versions of both fields' kernels.
 
 Replaces the TPU kernel ``plonky2_goldibear_tpu/ops/ntt.py:_fft_fused``
 (with ``_fft_four_step`` above 2^16).  On the H100 the transform is bound
-by device-memory passes, not arithmetic; the kernel keeps a 2^12-element
-tile in shared memory and runs every stage the tile spans before writing
-back, so an NTT of length 2^n costs ceil(n / 12) passes (see the note in
-the source).  The first pass folds in the bit-reversal and the LDE
-zero-prefix skip.
+by device-memory passes, not arithmetic; the kernel keeps a 32 KB tile in
+shared memory and runs every stage the tile spans before writing back, so
+an NTT of length 2^n costs ceil(n / LOG_TILE) passes (see the note in
+``csrc/ntt.cuh``).  The first pass folds in the bit-reversal and the LDE
+zero-prefix skip.  ``ops/ntt_bb.py`` runs the same schedule for BabyBear.
 
 ``fft(x, zero_prefix_log)`` launches the kernel for a CUDA tensor and runs
 ``fft_plain`` for a CPU tensor; there is no other dispatch.
 ``fft_by_passes`` replays the kernel's pass decomposition in plain torch so
-the CPU tests check its index arithmetic.
+the CPU tests check its index arithmetic.  The plain functions take the
+field module ``F`` (``gl`` or ``bb``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from ..field import gl, host
 
-LOG_TILE = 12           # must match csrc/ntt_gl.cu
+LOG_TILE = 12           # must match ntt_gl_pass in csrc/ntt_gl.cu
 launches = 0            # kernel launches since the last reset
 
 
@@ -50,22 +51,23 @@ def reverse_index_bits(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.index_select(x, dim, perm)
 
 
-def powers(base: int, n: int, device) -> torch.Tensor:
+def powers(base: int, n: int, device, F=gl) -> torch.Tensor:
     """[1, b, ..., b^(n-1)] for a host constant b (log-depth scan)."""
     if n == 0:
-        return gl.zeros((0,), device)
-    body = gl.cumprod(gl.full((n - 1,), base, device), axis=0)
-    return torch.cat([gl.ones((1,), device), body])
+        return F.zeros((0,), device)
+    body = F.cumprod(F.full((n - 1,), base, device), axis=0)
+    return torch.cat([F.ones((1,), device), body])
 
 
 @lru_cache(maxsize=32)
-def twiddles(n_log: int, device: str) -> torch.Tensor:
+def twiddles(n_log: int, device: str, F=gl) -> torch.Tensor:
     """tw[(1 << s) - 1 + i] = w_{2^(s+1)}^i for s < n_log, i < 2^s (the
-    rows of the reference's fft_root_table, field/src/fft.rs:12-31)."""
+    rows of the reference's fft_root_table, field/src/fft.rs:12-31), in
+    ``F``'s representation (Montgomery form for BabyBear)."""
     if n_log == 0:
-        return gl.zeros((1,), device)
-    top = powers(gl.SPEC.two_adic_generator(n_log), 1 << (n_log - 1),
-                 device)
+        return F.zeros((1,), device)
+    top = powers(F.SPEC.two_adic_generator(n_log), 1 << (n_log - 1),
+                 device, F)
     rows = [top[::1 << (n_log - 1 - s)] for s in range(n_log)]
     return torch.cat(rows).contiguous()
 
@@ -89,26 +91,27 @@ def _bitrev_load(x: torch.Tensor, r: int) -> torch.Tensor:
     return small.repeat_interleave(1 << r, dim=-1) if r else small
 
 
-def fft_plain(x: torch.Tensor, zero_prefix_log: int = 0) -> torch.Tensor:
+def fft_plain(x: torch.Tensor, zero_prefix_log: int = 0, F=gl
+              ) -> torch.Tensor:
     """Radix-2 DIT NTT over the last axis, one torch pass per stage."""
     n = x.shape[-1]
     n_log = host.log2_strict(n)
     batch = x.shape[:-1]
     r = zero_prefix_log
     y = _bitrev_load(x, r)
-    tw = twiddles(n_log, str(x.device))
+    tw = twiddles(n_log, str(x.device), F)
     for s in range(r, n_log):
         half = 1 << s
         yv = y.reshape(batch + (n // (2 * half), 2, half))
-        t = gl.mul(yv[..., 1, :], tw[half - 1:2 * half - 1])
+        t = F.mul(yv[..., 1, :], tw[half - 1:2 * half - 1])
         even = yv[..., 0, :]
-        y = torch.stack([gl.add(even, t), gl.sub(even, t)],
+        y = torch.stack([F.add(even, t), F.sub(even, t)],
                         dim=-2).reshape(batch + (n,))
     return y
 
 
 def fft_by_passes(x: torch.Tensor, zero_prefix_log: int = 0,
-                  tile_log: int = LOG_TILE) -> torch.Tensor:
+                  tile_log: int = LOG_TILE, F=gl) -> torch.Tensor:
     """The kernel's schedule in plain torch: passes of ``pass_plan``, each
     over (column, k) tiles with index j + (k << s0) + (h << s1)."""
     n = x.shape[-1]
@@ -116,7 +119,7 @@ def fft_by_passes(x: torch.Tensor, zero_prefix_log: int = 0,
     batch = x.shape[:-1]
     r = zero_prefix_log
     y = _bitrev_load(x, r)
-    tw = twiddles(n_log, str(x.device))
+    tw = twiddles(n_log, str(x.device), F)
     for s0, s1 in pass_plan(n_log, tile_log):
         # view as (batch, h, k, j): k spans the pass's stages
         v = y.reshape(batch + (n >> s1, 1 << (s1 - s0), 1 << s0))
@@ -130,8 +133,8 @@ def fft_by_passes(x: torch.Tensor, zero_prefix_log: int = 0,
             kr = torch.arange(half, device=x.device)
             w = tw[(1 << s) - 1 + j[None, :] + (kr[:, None] << s0)]
             a = vv[..., 0, :, :]
-            b = gl.mul(vv[..., 1, :, :], w)
-            v = torch.stack([gl.add(a, b), gl.sub(a, b)], dim=-3).reshape(
+            b = F.mul(vv[..., 1, :, :], w)
+            v = torch.stack([F.add(a, b), F.sub(a, b)], dim=-3).reshape(
                 v.shape)
         y = v.reshape(batch + (n,))
     return y
@@ -142,8 +145,11 @@ def fft_by_passes(x: torch.Tensor, zero_prefix_log: int = 0,
 # --------------------------------------------------------------------------
 
 
-def _launch(x: torch.Tensor, zero_prefix_log: int) -> torch.Tensor:
-    global launches
+def launch_passes(x: torch.Tensor, zero_prefix_log: int, F, lib_name: str,
+                  tile_log: int) -> torch.Tensor:
+    """Run the passes of ``pass_plan(n_log, tile_log)`` through the kernel
+    ``<lib_name>_pass`` of ``csrc/<lib_name>.cu``; returns the output and
+    the number of launches."""
     from . import _build
 
     n = x.shape[-1]
@@ -152,35 +158,43 @@ def _launch(x: torch.Tensor, zero_prefix_log: int) -> torch.Tensor:
     if not flat.is_contiguous():
         raise ValueError("fft kernel needs a contiguous tensor")
     out = torch.empty_like(flat)
-    tw = twiddles(n_log, str(x.device))
-    lib = _build.lib("ntt_gl")
-    fn = lib.ntt_gl_pass
+    tw = twiddles(n_log, str(x.device), F)
+    fn = getattr(_build.lib(lib_name), lib_name + "_pass")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
         [ctypes.c_int] * 6 + [ctypes.c_void_p]
     stream = _build.stream_ptr(x.device)
-    for p, (s0, s1) in enumerate(pass_plan(n_log)):
+    plan = pass_plan(n_log, tile_log)
+    for p, (s0, s1) in enumerate(plan):
         src = flat if p == 0 else out
         err = fn(src.data_ptr(), out.data_ptr(), tw.data_ptr(),
                  flat.shape[0], n_log, s0, s1, max(s0, zero_prefix_log),
                  int(p == 0), zero_prefix_log, stream)
-        _build.check(err, "ntt_gl_pass")
-        launches += 1
-    return out.reshape(x.shape)
+        _build.check(err, lib_name + "_pass")
+    return out.reshape(x.shape), len(plan)
+
+
+def check_input(x: torch.Tensor, F) -> bool:
+    """Validate an fft input; True when the transform is the identity."""
+    if x.dtype != F.DTYPE:
+        raise TypeError(f"fft needs {F.DTYPE} field tensors, got {x.dtype}")
+    n = x.shape[-1]
+    host.log2_strict(n)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fft: unsupported device {x.device}")
+    return n == 1 or x.numel() == 0
 
 
 def fft(x: torch.Tensor, zero_prefix_log: int = 0) -> torch.Tensor:
     """Forward NTT over the last axis of (..., N), natural order in and out:
     ``fft(c)[k] = sum_i c_i g^(ik)``, g of order N.  ``zero_prefix_log`` = r
     declares that only the first N / 2^r coefficients may be nonzero."""
-    if x.dtype != torch.int64:
-        raise TypeError(f"fft needs int64 field tensors, got {x.dtype}")
-    n = x.shape[-1]
-    host.log2_strict(n)
-    if n == 1 or x.numel() == 0:
+    global launches
+    if check_input(x, gl):
         return x.clone()
     if x.is_cuda:
-        return _launch(x.contiguous(), zero_prefix_log)
-    if x.device.type != "cpu":
-        raise ValueError(f"fft: unsupported device {x.device}")
+        out, k = launch_passes(x.contiguous(), zero_prefix_log, gl,
+                               "ntt_gl", LOG_TILE)
+        launches += k
+        return out
     return fft_plain(x, zero_prefix_log)

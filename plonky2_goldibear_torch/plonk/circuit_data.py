@@ -3,11 +3,14 @@ plonky2/src/plonk/circuit_data.rs:191-740).
 
 The port does not build circuits yet: a circuit and its witness reach it as
 data.  ``load_circuit`` takes the constants/sigmas values, the full wire
-matrix, the public inputs and the circuit metadata (config, FRI arities,
-gate ids, selector layout, coset shifts, digest, random wire), commits the
-constants/sigmas itself and returns a ``Circuit`` ready to prove.
-``load_fixture`` reads the same data from a fixture file written by
-``tests/test_torch_prove.py --write-fixtures``.
+matrix, the public inputs and the circuit metadata (field, config, FRI
+arities, gate ids, selector layout, coset shifts, digest, random wire),
+commits the constants/sigmas itself and returns a ``Circuit`` ready to
+prove.  The metadata's ``field`` ("goldilocks", the default, or
+"babybear") picks the field module, its extension and the hasher once:
+Goldilocks with Poseidon-GL, or BabyBear (Montgomery form) with
+Poseidon2-BB.  ``load_fixture`` reads the same data from a fixture file
+written by ``tests/test_torch_prove.py --write-fixtures``.
 """
 
 from __future__ import annotations
@@ -21,10 +24,11 @@ import numpy as np
 import torch
 
 from .. import device as devmod
-from ..field import gl, host
+from ..field import bb, ext, gl, host
 from ..fri.oracle import PolynomialBatch
 from ..gates import gate_from_id
 from ..gates.selectors import SelectorsInfo
+from ..hash import poseidon2_bb, poseidon_gl
 from .config import CircuitConfig, FriConfig, FriParams
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -36,9 +40,17 @@ ORACLE_WIRES = 1
 ORACLE_ZS_PARTIAL_PRODUCTS = 2
 ORACLE_QUOTIENT = 3
 
+# field name -> (spec, field module, hasher of the Merkle trees and the
+# transcript)
+FIELDS = {
+    "goldilocks": (host.GOLDILOCKS, gl, poseidon_gl),
+    "babybear": (host.BABYBEAR, bb, poseidon2_bb),
+}
 
-def fixture_path(degree_bits: int) -> str:
-    return os.path.join(DATA_DIR, f"arith_chain_2e{degree_bits}.npz")
+
+def fixture_path(degree_bits: int, field: str = "goldilocks") -> str:
+    tag = "" if field == "goldilocks" else "bb_"
+    return os.path.join(DATA_DIR, f"arith_chain_{tag}2e{degree_bits}.npz")
 
 
 @dataclass
@@ -137,7 +149,9 @@ class CommonCircuitData:
 
 @dataclass
 class Circuit:
-    """A loaded circuit with its witness, on one device."""
+    """A loaded circuit with its witness, on one device, with the field
+    module ``F``, its extension ``E`` and the ``hasher`` it is proved
+    with."""
     common: CommonCircuitData
     constants_sigmas_values: torch.Tensor     # (num_preprocessed, degree)
     constants_sigmas_commitment: PolynomialBatch
@@ -146,6 +160,12 @@ class Circuit:
     circuit_digest: List[int]
     random_wire: Optional[Tuple[int, int]]   # (row, column)
     device: torch.device
+    F: object = gl
+    hasher: object = poseidon_gl
+
+    @property
+    def E(self) -> ext.ExtOps:
+        return ext.ext_ops(self.F)
 
     @property
     def sigmas(self) -> torch.Tensor:
@@ -156,7 +176,8 @@ class Circuit:
         return self.constants_sigmas_commitment.cap_host()
 
 
-def _common_from_meta(meta: Dict) -> CommonCircuitData:
+def _common_from_meta(meta: Dict, spec: host.FieldSpec
+                      ) -> CommonCircuitData:
     cfg = meta["config"]
     fc = meta["fri_config"]
     config = CircuitConfig(
@@ -189,7 +210,7 @@ def _common_from_meta(meta: Dict) -> CommonCircuitData:
         num_constants=meta["num_constants"],
         num_public_inputs=meta["num_public_inputs"],
         k_is=[int(k) for k in meta["k_is"]],
-        num_partial_products=meta["num_partial_products"])
+        num_partial_products=meta["num_partial_products"], spec=spec)
 
 
 def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
@@ -200,9 +221,13 @@ def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
     values, ``wires`` (num_wires, n) and ``public_inputs`` (k,), all
     canonical uint64.  ``meta``: the plain-Python metadata written by the
     fixture writer.  Commits the constants/sigmas on ``device``; raises on a
-    gate id the port does not have."""
+    field or gate id the port does not have."""
     dev = devmod.resolve(device)
-    common = _common_from_meta(meta)
+    field = meta.get("field", "goldilocks")
+    if field not in FIELDS:
+        raise ValueError(f"field {field!r} is not ported")
+    spec, F, hasher = FIELDS[field]
+    common = _common_from_meta(meta, spec)
     n = common.degree
     cs = np.asarray(arrays["constants_sigmas"], dtype=np.uint64)
     wires = np.asarray(arrays["wires"], dtype=np.uint64)
@@ -211,18 +236,18 @@ def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
     if wires.shape != (common.config.num_wires, n):
         raise ValueError(f"wires has shape {wires.shape}")
     fc = common.config.fri_config
-    cs_values = gl.from_ints(cs, dev)
+    cs_values = F.from_ints(cs, dev)
     commitment = PolynomialBatch.from_values(cs_values, fc.rate_bits,
-                                             fc.cap_height)
+                                             fc.cap_height, F, hasher)
     return Circuit(
         common=common, constants_sigmas_values=cs_values,
         constants_sigmas_commitment=commitment,
-        wires=gl.from_ints(wires, dev),
+        wires=F.from_ints(wires, dev),
         public_inputs=[int(v) for v in arrays["public_inputs"]],
         circuit_digest=[int(v) for v in meta["circuit_digest"]],
         random_wire=tuple(meta["random_wire"]) if meta.get("random_wire")
         else None,
-        device=dev)
+        device=dev, F=F, hasher=hasher)
 
 
 def read_fixture(path: str):
@@ -233,8 +258,9 @@ def read_fixture(path: str):
     return arrays, meta
 
 
-def load_fixture(degree_bits: int, device="cuda"):
-    """The committed arithmetic-chain fixture: (circuit, arrays) where
-    arrays also hold the JAX proof (``proof_<phase>`` keys)."""
-    arrays, meta = read_fixture(fixture_path(degree_bits))
+def load_fixture(degree_bits: int, device="cuda", field: str = "goldilocks"):
+    """The committed arithmetic-chain fixture of ``field``: (circuit,
+    arrays) where arrays also hold the JAX proof (``proof_<phase>``
+    keys)."""
+    arrays, meta = read_fixture(fixture_path(degree_bits, field))
     return load_circuit(arrays, meta, device), arrays

@@ -6,7 +6,9 @@ quotient over the whole quotient domain, its commitment, the openings at
 zeta and g*zeta, then FRI.  Fiat-Shamir runs on the host between phases;
 every batched phase runs on the circuit's device.  ``prove`` returns the
 proof and fills ``timings`` (seconds per phase, each ended by a device
-synchronise) when a dict is passed.
+synchronise) when a dict is passed.  The field module ``F`` (``gl`` or
+``bb``), its extension ``E`` and the hasher (Poseidon-GL or Poseidon2-BB)
+are the circuit's (``circuit_data.load_circuit`` picks them).
 """
 
 from __future__ import annotations
@@ -18,18 +20,15 @@ from typing import Dict, List, Optional
 import torch
 
 from .. import device as devmod
-from ..field import ext as ext_mod
 from ..field import fft as fftm
-from ..field import gl, host
+from ..field import host
 from ..fri import prover as fri_prover
 from ..fri.oracle import PolynomialBatch
-from ..hash import poseidon_gl
 from ..hash.challenger import Challenger
 from . import vanishing
 from .proof import OpeningSet, Proof, ProofWithPublicInputs
 
 MAX_PERM_ARG_RETRIES = 3
-E = ext_mod.gl2
 
 
 class InvZeroPermArg(Exception):
@@ -65,8 +64,9 @@ def prove(circuit, device=None, timings: Optional[Dict[str, float]] = None,
                 "perm-arg failure with no random wire"
             row, col = circuit.random_wire
             wires = wires.clone()
-            wires[col, row] = int(torch.randint(
-                0, 1 << 62, (), generator=generator)) % gl.P
+            wires[col, row] = circuit.F.from_ints(
+                [int(torch.randint(0, 1 << 62, (), generator=generator))],
+                circuit.device)[0]
         try:
             return _internal_prove(circuit, wires, timings)
         except InvZeroPermArg:
@@ -74,16 +74,16 @@ def prove(circuit, device=None, timings: Optional[Dict[str, float]] = None,
     raise InvZeroPermArg("too many permutation argument failures")
 
 
-def _scalars(values: List[int], device) -> List[torch.Tensor]:
-    arr = gl.from_ints([int(v) % gl.P for v in values], device)
+def _scalars(F, values: List[int], device) -> List[torch.Tensor]:
+    arr = F.from_ints([int(v) % F.P for v in values], device)
     return list(arr.unbind(0)) if len(values) else []
 
 
-def _ext_scalar(value, device):
-    return tuple(_scalars(list(value), device))
+def _ext_scalar(F, value, device):
+    return tuple(_scalars(F, list(value), device))
 
 
-def partial_products(common, routed, s_id, sigmas, betas, gammas):
+def partial_products(F, common, routed, s_id, sigmas, betas, gammas):
     """Z and partial-product columns per challenge (reference
     prover.rs:449-546): batch (nch * (1 + num_pp), n), and whether any
     denominator was zero."""
@@ -95,17 +95,17 @@ def partial_products(common, routed, s_id, sigmas, betas, gammas):
     beta = torch.stack(list(betas))[:, None, None]
     gamma = torch.stack(list(gammas))[:, None, None]
     # all challenges at once: (nch, num_routed, n)
-    numer = gl.add(gl.add(routed[None], gl.mul(s_id[None], beta)), gamma)
-    denom = gl.add(gl.add(routed[None], gl.mul(sigmas[None], beta)), gamma)
-    any_zero = gl.is_zero(denom).any()
-    quot = gl.mul(numer, gl.inv(denom))
+    numer = F.add(F.add(routed[None], F.mul(s_id[None], beta)), gamma)
+    denom = F.add(F.add(routed[None], F.mul(sigmas[None], beta)), gamma)
+    any_zero = F.is_zero(denom).any()
+    quot = F.mul(numer, F.inv(denom))
     pad = nchunks * qdf - num_routed
-    quot = torch.cat([quot, gl.ones((nch, pad, n), dev)], dim=1)
-    chunk_prods = gl.batch_prod(quot.reshape(nch, nchunks, qdf, n), axis=2)
-    incl = gl.cumprod(gl.batch_prod(chunk_prods, axis=1), axis=-1)
-    z = torch.cat([gl.ones((nch, 1), dev), incl[:, :-1]], dim=1)
-    running = gl.cumprod(chunk_prods, axis=1)
-    pps = gl.mul(running[:, :common.num_partial_products], z[:, None])
+    quot = torch.cat([quot, F.ones((nch, pad, n), dev)], dim=1)
+    chunk_prods = F.batch_prod(quot.reshape(nch, nchunks, qdf, n), axis=2)
+    incl = F.cumprod(F.batch_prod(chunk_prods, axis=1), axis=-1)
+    z = torch.cat([F.ones((nch, 1), dev), incl[:, :-1]], dim=1)
+    running = F.cumprod(chunk_prods, axis=1)
+    pps = F.mul(running[:, :common.num_partial_products], z[:, None])
     return torch.cat([z, pps.reshape(-1, n)]), any_zero
 
 
@@ -115,6 +115,7 @@ class _QuotientData:
     def __init__(self, circuit):
         common = circuit.common
         dev = circuit.device
+        F = circuit.F
         spec = common.spec
         p = spec.p
         n = common.degree
@@ -125,19 +126,20 @@ class _QuotientData:
         self.next_step = 1 << qdb
         self.m = m = n << qdb
         w = spec.two_adic_generator(common.degree_bits + qdb)
-        self.shifted_xs = gl.mul_const(fftm.powers(w, m, dev),
-                                       spec.coset_shift)
+        self.shifted_xs = F.mul_const(fftm.powers(w, m, dev, F),
+                                      spec.coset_shift)
         tau = pow(w, n, p)
         gf_n = pow(spec.coset_shift, n, p)
         zh_small = [(gf_n * pow(tau, i, p) - 1) % p for i in range(1 << qdb)]
-        self.zh_inv = gl.from_ints(host.batch_inv(zh_small, p), dev).repeat(
+        self.zh_inv = F.from_ints(host.batch_inv(zh_small, p), dev).repeat(
             m >> qdb)
-        zh = gl.from_ints(zh_small, dev).repeat(m >> qdb)
-        x_minus_1 = gl.sub(self.shifted_xs, gl.ones((), dev))
-        self.l_0 = gl.mul(zh, gl.inv(gl.mul_const(x_minus_1, n % p)))
-        xs = fftm.powers(spec.two_adic_generator(common.degree_bits), n, dev)
-        k_arr = gl.from_ints(common.k_is, dev)
-        self.s_id = gl.mul(k_arr[:, None], xs[None, :])
+        zh = F.from_ints(zh_small, dev).repeat(m >> qdb)
+        x_minus_1 = F.sub(self.shifted_xs, F.ones((), dev))
+        self.l_0 = F.mul(zh, F.inv(F.mul_const(x_minus_1, n % p)))
+        xs = fftm.powers(spec.two_adic_generator(common.degree_bits), n, dev,
+                         F)
+        k_arr = F.from_ints(common.k_is, dev)
+        self.s_id = F.mul(k_arr[:, None], xs[None, :])
 
 
 def _quotient_data(circuit) -> _QuotientData:
@@ -154,7 +156,7 @@ def quotient_chunks(circuit, qd: _QuotientData, cs_lde, wires_lde,
     over the quotient domain, divided by Z_H, coset-iFFT'd and split
     (reference prover.rs:690-926)."""
     common = circuit.common
-    dev = circuit.device
+    F = circuit.F
     cs = cs_lde[:, ::qd.step]
     wires = wires_lde[:, ::qd.step]
     zs_pp = zs_pp_lde[:, ::qd.step]
@@ -164,20 +166,20 @@ def quotient_chunks(circuit, qd: _QuotientData, cs_lde, wires_lde,
     z0, z1 = common.zs_range()
     pp0, pp1 = common.partial_products_range()
     values = vanishing.eval_vanishing_poly(
-        common, qd.shifted_xs, qd.l_0, wires, cs[c0:c1], pi_hash,
+        F, common, qd.shifted_xs, qd.l_0, wires, cs[c0:c1], pi_hash,
         zs_pp[z0:z1], zs_pp_next[z0:z1], zs_pp[pp0:pp1], cs[s0:s1],
         betas, gammas, alphas)
     n = common.degree
     qdf = common.quotient_degree_factor
     chunks = []
     for v in values:
-        q_values = gl.mul(v.expand(qd.m), qd.zh_inv)
-        q_coeffs = fftm.coset_ifft(q_values, common.spec.coset_shift)
+        q_values = F.mul(v.expand(qd.m), qd.zh_inv)
+        q_coeffs = fftm.coset_ifft(q_values, common.spec.coset_shift, F)
         chunks.append(q_coeffs[:common.quotient_degree].reshape(qdf, n))
     return torch.cat(chunks, dim=0)
 
 
-def _ext_powers(z, n: int):
+def _ext_powers(E, z, n: int):
     """[1, z, ..., z^(n-1)] as an ext (n,) array (log-doubling)."""
     dev = z[0].device
     pows = E.ones((1,), dev)
@@ -191,27 +193,27 @@ def _ext_powers(z, n: int):
     return tuple(c[:n] for c in pows)
 
 
-def eval_at(coeffs: torch.Tensor, pows) -> tuple:
+def eval_at(F, coeffs: torch.Tensor, pows) -> tuple:
     """Every poly of a coefficient batch (P, n) at the point whose powers
     are ``pows``: D arrays of (P,)."""
-    return tuple(gl.batch_sum(gl.mul(coeffs, pw[None, :]), axis=-1)
+    return tuple(F.batch_sum(F.mul(coeffs, pw[None, :]), axis=-1)
                  for pw in pows)
 
 
-def opening_set(common, zeta, oracles) -> OpeningSet:
+def opening_set(F, E, common, zeta, oracles) -> OpeningSet:
     """Openings at zeta and g * zeta (reference proof.rs:347-386)."""
     spec = common.spec
     dev = oracles[0].coeffs.device
     g = spec.two_adic_generator(common.degree_bits)
     zeta_next = host.ext_scalar_mul(spec, zeta, g)
     n = common.degree
-    pz = _ext_powers(_ext_scalar(zeta, dev), n)
-    pzn = _ext_powers(_ext_scalar(zeta_next, dev), n)
+    pz = _ext_powers(E, _ext_scalar(F, zeta, dev), n)
+    pzn = _ext_powers(E, _ext_scalar(F, zeta_next, dev), n)
     cs, wires, zs_pp, quotient = oracles
-    parts = [eval_at(cs.coeffs, pz), eval_at(wires.coeffs, pz),
-             eval_at(zs_pp.coeffs, pz), eval_at(zs_pp.coeffs, pzn),
-             eval_at(quotient.coeffs, pz)]
-    flat = gl.to_ints(torch.cat([torch.stack(p, dim=1) for p in parts]))
+    parts = [eval_at(F, cs.coeffs, pz), eval_at(F, wires.coeffs, pz),
+             eval_at(F, zs_pp.coeffs, pz), eval_at(F, zs_pp.coeffs, pzn),
+             eval_at(F, quotient.coeffs, pz)]
+    flat = F.to_ints(torch.cat([torch.stack(p, dim=1) for p in parts]))
     vals = [tuple(int(v) for v in row) for row in flat]
     sizes = [p[0].shape[0] for p in parts]
     out, off = [], 0
@@ -235,18 +237,22 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
     common = circuit.common
     config = common.config
     dev = circuit.device
+    F, hasher = circuit.F, circuit.hasher
     rate_bits = config.fri_config.rate_bits
     cap_height = config.fri_config.cap_height
     nch = config.num_challenges
     qd = _quotient_data(circuit)
-    public_inputs_hash = poseidon_gl.hash_no_pad_host(circuit.public_inputs)
+    public_inputs_hash = hasher.hash_no_pad_host(circuit.public_inputs)
+
+    def commit_values(values):
+        return PolynomialBatch.from_values(values, rate_bits, cap_height, F,
+                                           hasher)
 
     with _phase(timings, "wires_commit", dev):
-        wires_commitment = PolynomialBatch.from_values(
-            wires_values, rate_bits, cap_height)
+        wires_commitment = commit_values(wires_values)
         wires_cap = wires_commitment.cap_host()
 
-    challenger = Challenger()
+    challenger = Challenger(common.spec, hasher)
     challenger.observe_hash(circuit.circuit_digest)
     challenger.observe_hash(public_inputs_hash)
     challenger.observe_cap(wires_cap)
@@ -255,14 +261,14 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
 
     with _phase(timings, "partial_products", dev):
         zs_pp, any_zero = partial_products(
-            common, wires_values[:config.num_routed_wires], qd.s_id,
-            circuit.sigmas, _scalars(betas, dev), _scalars(gammas, dev))
+            F, common, wires_values[:config.num_routed_wires], qd.s_id,
+            circuit.sigmas, _scalars(F, betas, dev),
+            _scalars(F, gammas, dev))
         if bool(any_zero):
             raise InvZeroPermArg()
 
     with _phase(timings, "zs_pp_commit", dev):
-        zs_pp_commitment = PolynomialBatch.from_values(zs_pp, rate_bits,
-                                                       cap_height)
+        zs_pp_commitment = commit_values(zs_pp)
         zs_pp_cap = zs_pp_commitment.cap_host()
     challenger.observe_cap(zs_pp_cap)
     alphas = challenger.get_n_challenges(nch)
@@ -271,11 +277,12 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
         chunks = quotient_chunks(
             circuit, qd, circuit.constants_sigmas_commitment.lde,
             wires_commitment.lde, zs_pp_commitment.lde,
-            _scalars(public_inputs_hash, dev), _scalars(betas, dev),
-            _scalars(gammas, dev), _scalars(alphas, dev))
+            _scalars(F, public_inputs_hash, dev), _scalars(F, betas, dev),
+            _scalars(F, gammas, dev), _scalars(F, alphas, dev))
 
     with _phase(timings, "quotient_commit", dev):
-        quotient_commitment = PolynomialBatch(chunks, rate_bits, cap_height)
+        quotient_commitment = PolynomialBatch(chunks, rate_bits, cap_height,
+                                              F, hasher)
         quotient_cap = quotient_commitment.cap_host()
     challenger.observe_cap(quotient_cap)
 
@@ -286,7 +293,7 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
                zs_pp_commitment, quotient_commitment]
 
     with _phase(timings, "openings", dev):
-        openings = opening_set(common, zeta, oracles)
+        openings = opening_set(F, circuit.E, common, zeta, oracles)
     fri_openings = openings.to_fri_openings()
     for batch_vals in fri_openings:
         challenger.observe_extension_elements(batch_vals)
@@ -295,7 +302,7 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
         batch.values = vals
 
     opening_proof = fri_prover.prove_openings(
-        instance, oracles, challenger, common.fri_params, timings)
+        instance, oracles, challenger, common.fri_params, timings, F, hasher)
 
     proof = Proof(wires_cap=wires_cap,
                   plonk_zs_partial_products_cap=zs_pp_cap,

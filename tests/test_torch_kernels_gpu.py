@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from plonky2_goldibear_torch.field import gl
-from plonky2_goldibear_torch.ops import ntt
+from plonky2_goldibear_torch.field import bb, gl
+from plonky2_goldibear_torch.ops import ntt, ntt_bb
+from plonky2_goldibear_torch.ops import poseidon2_bb as K2
 from plonky2_goldibear_torch.ops import poseidon_gl as K
 
 pytestmark = pytest.mark.gpu
@@ -57,5 +58,44 @@ def test_leaf_sponge_kernel(cuda, n, length):
 def test_merkle_levels_kernel(cuda, n, layers):
     d = _rand(cuda, n, 4, seed=n)
     got, ref = K.merkle_levels(d, layers), K.merkle_levels_plain(d, layers)
+    assert len(got) == len(ref) == layers
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+# -- BabyBear (Montgomery-form int32 tensors) --------------------------------
+
+
+def _rand_bb(device, *shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return bb.from_ints(rng.integers(0, bb.P, size=shape, dtype=np.uint64),
+                        device)
+
+
+@pytest.mark.parametrize("batch,n_log,r", [(3, 1, 0), (5, 8, 2), (4, 12, 0),
+                                           (3, 13, 0), (2, 15, 3),
+                                           (1, 25, 0)])
+def test_ntt_bb_kernel(cuda, batch, n_log, r):
+    x = _rand_bb(cuda, batch, 1 << n_log, seed=n_log)
+    x[:, (1 << n_log) >> r:] = 0
+    assert torch.equal(ntt_bb.fft(x, r), ntt_bb.fft_plain(x, r))
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 1 << 17])
+def test_poseidon2_bb_permute_kernel(cuda, n):
+    s = _rand_bb(cuda, n, 16, seed=n)
+    assert torch.equal(K2.permute(s), K2.permute_plain(s))
+
+
+@pytest.mark.parametrize("n,length", [(5, 1), (33, 8), (100, 167),
+                                      (64, 32), (9, 45)])
+def test_poseidon2_bb_leaf_sponge_kernel(cuda, n, length):
+    s = _rand_bb(cuda, n, length, seed=length)
+    assert torch.equal(K2.hash_leaves(s), K2.hash_leaves_plain(s))
+
+
+@pytest.mark.parametrize("n,layers", [(16, 4), (1024, 6), (1 << 15, 11)])
+def test_poseidon2_bb_merkle_levels_kernel(cuda, n, layers):
+    d = _rand_bb(cuda, n, 8, seed=n)
+    got, ref = K2.merkle_levels(d, layers), K2.merkle_levels_plain(d, layers)
     assert len(got) == len(ref) == layers
     assert all(torch.equal(a, b) for a, b in zip(got, ref))

@@ -7,13 +7,16 @@ the JAX proof of it under ``set_nonrandom(True)``.  The port loads the
 circuit as data, recommits the constants/sigmas, proves on the CPU and must
 reproduce every phase of the JAX proof bit for bit.
 
-Regenerate the fixtures with the JAX package on the CPU.  The 2^6 one takes
-about a quarter of an hour; the 2^12 one about three hours even without the
-device-transcript comparison, nearly all of it in the JAX PoseidonGate
-quotient program on XLA:CPU:
+Regenerate the fixtures with the JAX package on the CPU.  The Goldilocks
+2^6 one takes about a quarter of an hour; the 2^12 one about three hours
+even without the device-transcript comparison, nearly all of it in the JAX
+PoseidonGate quotient program on XLA:CPU:
 
     python tests/test_torch_prove.py --write-fixtures 6
     python tests/test_torch_prove.py --write-fixtures --sync-only 12
+    python tests/test_torch_prove.py --write-fixtures --field babybear 6
+    python tests/test_torch_prove.py --write-fixtures --field babybear \
+        --sync-only 12
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+from plonky2_goldibear_torch.plonk.proof import PROOF_PHASES  # noqa: E402
+
 FIXTURE_SIZES = (6, 12)
 
 
@@ -40,6 +45,8 @@ FIXTURE_SIZES = (6, 12)
 
 @pytest.fixture(scope="module")
 def proved():
+    """(circuit, arrays, flattened port proof) of each field's 2^6 fixture,
+    proved on the CPU once per module."""
     import torch
 
     from plonky2_goldibear_torch.plonk import prover
@@ -47,29 +54,65 @@ def proved():
     from plonky2_goldibear_torch.plonk.proof import flatten_proof
 
     torch.set_num_threads(1)
-    circuit, arrays = load_fixture(6, device="cpu")
-    proof = prover.prove(circuit, device="cpu")
-    return circuit, arrays, flatten_proof(proof)
+    cache = {}
+
+    def get(field):
+        if field not in cache:
+            circuit, arrays = load_fixture(6, device="cpu", field=field)
+            proof = prover.prove(circuit, device="cpu")
+            cache[field] = (circuit, arrays, flatten_proof(proof))
+        return cache[field]
+
+    return get
 
 
-def test_constants_sigmas_cap_matches_jax(proved):
-    circuit, arrays, _ = proved
+def _cap_matches(proved, field):
+    circuit, arrays, _ = proved(field)
     np.testing.assert_array_equal(
         np.asarray(circuit.constants_sigmas_cap(), dtype=np.uint64),
         arrays["constants_sigmas_cap"])
 
 
-@pytest.mark.parametrize("phase", [
-    "public_inputs", "wires_cap", "zs_pp_cap", "quotient_cap", "openings",
-    "fri_caps", "final_poly", "pow_witness", "query_rounds"])
-def test_proof_phase_matches_jax(proved, phase):
-    _, arrays, flat = proved
+def test_constants_sigmas_cap_matches_jax(proved):
+    _cap_matches(proved, "goldilocks")
+
+
+def test_bb_constants_sigmas_cap_matches_jax(proved):
+    """BabyBear: 8-element digests of Poseidon2 over Montgomery values."""
+    _cap_matches(proved, "babybear")
+
+
+@pytest.mark.parametrize("field,phase", [
+    pytest.param("goldilocks", ph, id=ph) for ph in PROOF_PHASES] + [
+    pytest.param("babybear", ph, id="bb-" + ph) for ph in PROOF_PHASES])
+def test_proof_phase_matches_jax(proved, field, phase):
+    _, arrays, flat = proved(field)
     np.testing.assert_array_equal(flat[phase], arrays["proof_" + phase])
 
 
+@pytest.mark.parametrize("field,preset", [
+    ("goldilocks", "standard_recursion_config_gl"),
+    ("babybear", "standard_recursion_config_bb")])
+def test_fixture_config_is_the_preset(field, preset):
+    """Each fixture was built under its field's standard recursion config;
+    the BabyBear one has FRI arity 2^3, Poseidon2 and the 167/41 wires."""
+    from plonky2_goldibear_torch.plonk.circuit_data import (fixture_path,
+                                                            load_circuit,
+                                                            read_fixture)
+    from plonky2_goldibear_torch.plonk.config import CircuitConfig
+
+    arrays, meta = read_fixture(fixture_path(6, field))
+    circuit = load_circuit(arrays, meta, device="cpu")
+    assert circuit.common.config == getattr(CircuitConfig, preset)()
+    assert circuit.common.spec.name == field
+    assert circuit.hasher.NUM_HASH_OUT == circuit.common.spec.num_hash_out_elts
+    arity_bits = set(meta["reduction_arity_bits"])
+    assert arity_bits == ({4} if field == "goldilocks" else {3})
+
+
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports neither jax nor
-    the JAX package."""
+    """Every module of the port (both fields'), and chip_smoke.py, imports
+    neither jax nor the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import plonky2_goldibear_torch as pkg\n"
@@ -85,7 +128,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 30
 
 
 def test_prove_without_device_needs_a_gpu():
@@ -122,13 +165,14 @@ def test_load_circuit_rejects_unported_gate():
 # --------------------------------------------------------------------------
 
 
-def _build_arith_chain(config, target_degree_bits):
+def _build_arith_chain(config, target_degree_bits, spec=None):
     """The ArithmeticGate chain of ``bench.py:_build_arith_chain``: one
     public input, a chain of x*x + x ops filling 2^target_degree_bits rows
     less a few for the public-input hash, constants and padding."""
     from plonky2_goldibear_tpu.plonk.builder import CircuitBuilder
 
-    builder = CircuitBuilder(config)
+    builder = (CircuitBuilder(config) if spec is None
+               else CircuitBuilder(config, spec=spec))
     x = builder.add_virtual_target()
     builder.register_public_input(x)
     cur = x
@@ -142,12 +186,13 @@ def _build_arith_chain(config, target_degree_bits):
     return data, x
 
 
-def _circuit_meta(data) -> dict:
+def _circuit_meta(data, field: str) -> dict:
     common = data.common
     cfg = common.config
     fc = cfg.fri_config
     po = data.prover_only
     return {
+        "field": field,
         "config": {
             "num_wires": cfg.num_wires,
             "num_routed_wires": cfg.num_routed_wires,
@@ -181,13 +226,21 @@ def _circuit_meta(data) -> dict:
 
 
 def write_fixture(degree_bits: int, path: str,
-                  compare_async: bool = True) -> None:
+                  compare_async: bool = True,
+                  field: str = "goldilocks") -> None:
     """Build the circuit, export its data and witness, prove it on the JAX
     sync-transcript path (the one the port mirrors), verify, and write the
     fixture.  Then, unless ``compare_async`` is off, prove again on the
-    JAX device-transcript path and report any field that differs."""
+    JAX device-transcript path and report any field that differs.
+    ``field`` is "goldilocks" (``standard_recursion_config_gl``, Poseidon)
+    or "babybear" (``standard_recursion_config_bb``, Poseidon2)."""
+    import time
+
+    from plonky2_goldibear_tpu.field import bb as jbb
     from plonky2_goldibear_tpu.field import fft as jfft
     from plonky2_goldibear_tpu.field import gl as jgl
+    from plonky2_goldibear_tpu.field.host import BABYBEAR
+    from plonky2_goldibear_tpu.hash import poseidon2_bb, poseidon_gl
     from plonky2_goldibear_tpu.iop import generator as gen
     from plonky2_goldibear_tpu.iop.witness import PartialWitness
     from plonky2_goldibear_tpu.plonk.config import CircuitConfig
@@ -197,9 +250,17 @@ def write_fixture(degree_bits: int, path: str,
 
     from plonky2_goldibear_torch.plonk.proof import flatten_proof
 
+    t0 = time.time()
     gen.set_nonrandom(True)
-    data, x = _build_arith_chain(
-        CircuitConfig.standard_recursion_config_gl(), degree_bits)
+    if field == "babybear":
+        jF, hasher = jbb, poseidon2_bb
+        data, x = _build_arith_chain(
+            CircuitConfig.standard_recursion_config_bb(), degree_bits,
+            spec=BABYBEAR)
+    else:
+        jF, hasher = jgl, poseidon_gl
+        data, x = _build_arith_chain(
+            CircuitConfig.standard_recursion_config_gl(), degree_bits)
     common, po = data.common, data.prover_only
     pw = PartialWitness()
     pw.set_target(x, 3)
@@ -207,9 +268,9 @@ def write_fixture(degree_bits: int, path: str,
     gen.set_nonrandom(True)
     part = gen.generate_partial_witness(pw, po, common)
     public_inputs = part.get_targets(po.public_inputs)
-    wires = WitnessTransfer(jgl, part, po, common, dense=True).matrix
-    cs_values = jgl.to_ints(jfft.fft(
-        jgl, po.constants_sigmas_commitment.coeffs))
+    wires = WitnessTransfer(jF, part, po, common, dense=True).matrix
+    cs_values = jF.to_ints(jfft.fft(
+        jF, po.constants_sigmas_commitment.coeffs))
 
     arrays = {
         "constants_sigmas": np.asarray(cs_values, dtype=np.uint64),
@@ -220,20 +281,21 @@ def write_fixture(degree_bits: int, path: str,
     }
     gen.set_nonrandom(True)
     proof_sync = data.prove(pw, timing=ProvingProcessInfo("prove"))
-    verify(proof_sync, data.verifier_only, common)
+    verify(proof_sync, data.verifier_only, common, hasher=hasher)
     flat_sync = flatten_proof(proof_sync)
     assert [int(v) for v in flat_sync["public_inputs"]] == \
         [int(v) for v in public_inputs]
     for k, v in flat_sync.items():
         arrays["proof_" + k] = v
-    meta = json.dumps(_circuit_meta(data))
+    meta = json.dumps(_circuit_meta(data, field))
     np.savez_compressed(path, meta=np.array(meta), **arrays)
-    print(f"wrote {path} ({os.path.getsize(path)} bytes)", flush=True)
+    print(f"wrote {path} ({os.path.getsize(path)} bytes) after "
+          f"{time.time() - t0:.0f} s", flush=True)
 
     if compare_async:
         gen.set_nonrandom(True)
         proof_async = data.prove(pw)
-        verify(proof_async, data.verifier_only, common)
+        verify(proof_async, data.verifier_only, common, hasher=hasher)
         flat_async = flatten_proof(proof_async)
         differ = [k for k in flat_sync
                   if not np.array_equal(flat_sync[k], flat_async[k])]
@@ -253,7 +315,8 @@ def _write_fixtures(args) -> None:
     from plonky2_goldibear_torch.plonk.circuit_data import fixture_path
 
     for bits in args.sizes or FIXTURE_SIZES:
-        write_fixture(bits, fixture_path(bits), not args.sync_only)
+        write_fixture(bits, fixture_path(bits, args.field),
+                      not args.sync_only, args.field)
 
 
 if __name__ == "__main__":
@@ -263,6 +326,8 @@ if __name__ == "__main__":
         description="Write the port's prover fixtures from the JAX package "
                     "(or, without --write-fixtures, run these tests).")
     ap.add_argument("--write-fixtures", action="store_true")
+    ap.add_argument("--field", choices=("goldilocks", "babybear"),
+                    default="goldilocks")
     ap.add_argument("--sync-only", action="store_true",
                     help="skip the device-transcript comparison prove")
     ap.add_argument("sizes", nargs="*", type=int,
