@@ -19,6 +19,24 @@
    are set to 0 just before it).  Each proof must equal the fixture's
    stored JAX proof field by field.
 
+Between 3 and 4, the probe phase: each dependent-chain probe kernel
+(``ops/probes.py``: GL multiply, squaring, two x^7 S-boxes, u32 multiply,
+multiply-and-mask, add, f32 FMA) is held against its plain version at a
+ragged size and at the probe runner's two sizes (the script's element
+count and a card-filling one) at the script's reps, the card-filling call
+timed; where one PyTorch call computes the same chain (u32 add and
+multiply), it is held and timed too.  Then the probe runner
+(``plonky2_goldibear_torch.probes``, every chain section, launches
+counted) measures each operation's rate at both sizes.  The card-filling
+rates give every kernel of phase 3 a second bound, the "probe bound": 118
+S-boxes per Poseidon-GL permutation at the measured S-box rate, one GL
+multiply per NTT butterfly at the measured multiply rate, and 4 u32
+multiplies per BabyBear product at the measured u32 multiply rate (each
+the larger of it and the byte bound).  At the end it ranks the path
+kernels by calls per prove x (ms - probe bound), calls being launches per
+prove over the launches of the checked call, with the same excess over
+the data-sheet bound beside it.
+
 It prints a JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 when there is no CUDA device, when the package is missing, or when any
@@ -36,14 +54,67 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
-INT32_MUL_PER_SM_CLK = 64     # 32-bit IMAD per SM per clock, compute 9.0
+# NVIDIA's CUDA C++ documentation, arithmetic instruction throughput table,
+# compute capability 9.0, results per clock per SM: 32-bit integer multiply,
+# multiply-add, add and bitwise ops 64; 32-bit float fma 128
+INT32_OPS_PER_SM_CLK = 64
+FP32_FMA_PER_SM_CLK = 128
 MULS_PER_FIELD_MUL = 4        # GL 64x64 -> 128 from four 32x32 products;
                               # BB Montgomery: 32x32 -> 64 (two), m, m p
+FMA_RTOL = 1e-5               # fmaf rounds once, the plain version twice
 OUT_DIR = "chip_smoke_out"    # the report, listed in .gitignore
 MAIN_BITS = 12                # the benchmark circuit: 2^12 rows
 SMALL_BITS = 6                # a second fixture: every level in the tail
 GL_PERM_MULS = 8 * 12 * 4 + 22 * 4            # field muls per permutation
+GL_PERM_SBOXES = 8 * 12 + 22                  # S-boxes per permutation
 BB_PERM_MULS = 8 * 16 * 4 + 13 * (4 + 16 + 15)
+# probe step -> (the operations of one rep its bound counts, their per-SM-
+# clock rate, one PyTorch call computing the same chain from x0 and reps, or
+# None).  A GL multiply counts its four 32-bit products, as the data-sheet
+# bound does; mul16's IMAD and LOP3 run on two pipes at once, so it counts
+# the IMAD; a three-input IADD3 adds twice.  The u32 add chain is
+# (reps + 1) x0 and the multiply chain x0^(reps + 1), mod 2^32; no single
+# call computes the others (a GL power mod p, mul16's x0 s^reps mod 2^16,
+# the FMA's geometric sum).  Each step's section and the TPU kernel it
+# replaces come from the probe runner's SECTIONS.
+PROBES = {
+    "gl_mul": (MULS_PER_FIELD_MUL, INT32_OPS_PER_SM_CLK, None),
+    "gl_sqr": (MULS_PER_FIELD_MUL, INT32_OPS_PER_SM_CLK, None),
+    "gl_sbox": (4 * MULS_PER_FIELD_MUL, INT32_OPS_PER_SM_CLK, None),
+    "gl_sbox_serial": (4 * MULS_PER_FIELD_MUL, INT32_OPS_PER_SM_CLK, None),
+    "u32_mul": (1, INT32_OPS_PER_SM_CLK, lambda x, reps: x.pow(reps + 1)),
+    "u32_mul16": (1, INT32_OPS_PER_SM_CLK, None),
+    "u32_add": (0.5, INT32_OPS_PER_SM_CLK, lambda x, reps: x * (reps + 1)),
+    "f32_fma": (1, FP32_FMA_PER_SM_CLK, None),
+}
+
+# kernel -> (source, the TPU kernel it replaces, its launch counter)
+SOURCES = {
+    "ntt_gl": ("plonky2_goldibear_torch/csrc/ntt_gl.cu",
+               "plonky2_goldibear_tpu/ops/ntt.py:150", "ntt"),
+    "poseidon_gl_permute": (
+        "plonky2_goldibear_torch/csrc/poseidon_gl.cu",
+        "plonky2_goldibear_tpu/ops/poseidon_gl.py:301", "permute"),
+    "poseidon_gl_leaf_sponge": (
+        "plonky2_goldibear_torch/csrc/poseidon_gl.cu",
+        "plonky2_goldibear_tpu/ops/poseidon_gl.py:354", "leaf_sponge"),
+    "poseidon_gl_merkle_levels": (
+        "plonky2_goldibear_torch/csrc/poseidon_gl.cu",
+        "plonky2_goldibear_tpu/ops/poseidon_gl.py:452", "merkle_levels"),
+    "ntt_bb": ("plonky2_goldibear_torch/csrc/ntt_bb.cu",
+               "plonky2_goldibear_tpu/ops/ntt_bb.py:146", "ntt_bb"),
+    "poseidon2_bb_permute": (
+        "plonky2_goldibear_torch/csrc/poseidon2_bb.cu",
+        "plonky2_goldibear_tpu/ops/poseidon2_bb.py:161", "p2_permute"),
+    "poseidon2_bb_leaf_sponge": (
+        "plonky2_goldibear_torch/csrc/poseidon2_bb.cu",
+        "plonky2_goldibear_tpu/ops/poseidon2_bb.py:161",
+        "p2_leaf_sponge"),
+    "poseidon2_bb_merkle_levels": (
+        "plonky2_goldibear_torch/csrc/poseidon2_bb.cu",
+        "plonky2_goldibear_tpu/ops/poseidon2_bb.py:161",
+        "p2_merkle_levels"),
+}
 
 
 def _smi(query: str) -> str:
@@ -53,7 +124,9 @@ def _smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
-def _cuda_ms(fn, reps: int) -> float:
+def _timed(fn, reps: int):
+    """(the last output of fn, ms per call of fn over reps calls after a
+    warm-up one)."""
     import torch
 
     fn()
@@ -62,10 +135,14 @@ def _cuda_ms(fn, reps: int) -> float:
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return out, start.elapsed_time(end) / reps
+
+
+def _cuda_ms(fn, reps: int) -> float:
+    return _timed(fn, reps)[1]
 
 
 def _compare(a, b):
@@ -85,6 +162,26 @@ def _compare(a, b):
         return 0, 0.0
     diff = np.where(x > y, x - y, y - x)
     return int(bad.sum()), float(diff.max())
+
+
+def _compare_probe(a, b):
+    """(mismatches, max |a - b|) of two probe chains: GL as field values,
+    u32 as unsigned integers, f32 outside a relative FMA_RTOL.  An f32
+    chain overflows to inf at large reps: inf is read as the largest float,
+    so inf against inf is a match, and inf against a finite value one
+    rounding below it is within the tolerance."""
+    import numpy as np
+    import torch
+
+    if a.dtype == torch.int64:
+        return _compare(a, b)
+    if a.dtype == torch.int32:
+        x = a.cpu().numpy().view(np.uint32).astype(np.int64)
+        y = b.cpu().numpy().view(np.uint32).astype(np.int64)
+        return int((x != y).sum()), float(np.abs(x - y).max())
+    a, b = torch.nan_to_num(a).double(), torch.nan_to_num(b).double()
+    bad = ~torch.isclose(a, b, rtol=FMA_RTOL, atol=0)
+    return int(bad.sum()), float((a - b).abs().max())
 
 
 def main() -> int:
@@ -116,15 +213,17 @@ def main() -> int:
     clock = _smi("clocks.max.sm").split()
     max_clock_mhz = float(clock[0]) if clock else 1980.0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    mul_rate = sms * INT32_MUL_PER_SM_CLK * max_clock_mhz * 1e6
+    mul_rate = sms * INT32_OPS_PER_SM_CLK * max_clock_mhz * 1e6
     report["card"] = card
     report["int32_mul_per_s"] = mul_rate
 
-    def bound(nbytes, field_muls):
-        t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-        t_ops = field_muls * MULS_PER_FIELD_MUL / mul_rate * 1e3
+    def larger(t_bytes, t_ops):
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
+
+    def bound(nbytes, field_muls):
+        return larger(nbytes / MEM_BYTES_PER_S * 1e3,
+                      field_muls * MULS_PER_FIELD_MUL / mul_rate * 1e3)
 
     # -- phase 2: build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -150,7 +249,7 @@ def main() -> int:
     checks = {}
 
     def check(key, name, kernel_fn, plain_fn, reps, nbytes, field_muls,
-              main=False):
+              main=False, sboxes=None):
         ops.reset_launches()
         out = kernel_fn()
         torch.cuda.synchronize()
@@ -164,7 +263,8 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, field_muls)
         line = dict(kernel=name, mismatches=mism, max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    launches_per_call=launched)
+                    launches_per_call=launched, bytes=nbytes,
+                    field_muls=field_muls, sboxes=sboxes)
         print(f"check {key}: " + json.dumps(line))
         report.setdefault("checks", {})[key] = line
         if mism != 0:
@@ -189,24 +289,27 @@ def main() -> int:
         st = rand(1 << 17, 12)
         check("permute_2^17", "poseidon_gl_permute",
               lambda: K_pos.permute(st), lambda: K_pos.permute_plain(st), 20,
-              2 * st.numel() * 8, (1 << 17) * GL_PERM_MULS, main=True)
+              2 * st.numel() * 8, (1 << 17) * GL_PERM_MULS, main=True,
+              sboxes=(1 << 17) * GL_PERM_SBOXES)
         rag = rand(1000, 12)
         check("permute_ragged_1000", "poseidon_gl_permute",
               lambda: K_pos.permute(rag),
               lambda: K_pos.permute_plain(rag), 20,
-              2 * rag.numel() * 8, 1000 * GL_PERM_MULS)
+              2 * rag.numel() * 8, 1000 * GL_PERM_MULS,
+              sboxes=1000 * GL_PERM_SBOXES)
         leaves = rand(1 << 15, 135)
         check("leaf_sponge_2^15x135", "poseidon_gl_leaf_sponge",
               lambda: K_pos.hash_leaves(leaves),
               lambda: K_pos.hash_leaves_plain(leaves), 10,
               leaves.numel() * 8 + (1 << 15) * 32,
-              (1 << 15) * 17 * GL_PERM_MULS, main=True)
+              (1 << 15) * 17 * GL_PERM_MULS, main=True,
+              sboxes=(1 << 15) * 17 * GL_PERM_SBOXES)
         d0 = rand(1 << 15, 4)
         check("merkle_levels_2^15_to_cap16", "poseidon_gl_merkle_levels",
               lambda: K_pos.merkle_levels(d0, 11),
               lambda: K_pos.merkle_levels_plain(d0, 11), 10,
               d0.numel() * 8 * 2, ((1 << 15) - 16) * GL_PERM_MULS,
-              main=True)
+              main=True, sboxes=((1 << 15) - 16) * GL_PERM_SBOXES)
     except Exception as e:       # a build or launch failure is a result too
         failures.append(f"kernel checks: {type(e).__name__}: {e}")
 
@@ -247,6 +350,83 @@ def main() -> int:
               main=True)
     except Exception as e:
         failures.append(f"BabyBear kernel checks: {type(e).__name__}: {e}")
+
+    # -- phase 3b: the probe chains ------------------------------------------
+    from plonky2_goldibear_torch import probes as runner
+    from plonky2_goldibear_torch.ops import probes as K_probe
+
+    probe_checks, probe_recs, probe_counts = {}, {}, {}
+    try:
+        for step, (ops_per_rep, per_sm_clk, library) in PROBES.items():
+            section = next(k for k, v in runner.SECTIONS.items()
+                           if v[0] == step)
+            _, n_script, reps, _ = runner.SECTIONS[section]
+            # a ragged size, one pass of the unrolled loop and a remainder
+            x = runner.make_input(step, 1000, dev, seed=3)
+            r = K_probe.unroll(step) + 5
+            results = [_compare_probe(K_probe.chain(x, step, r),
+                                      K_probe.chain_plain(x, step, r))]
+            # the runner's two sizes at the script's reps; the card-filling
+            # call is the timed one, its output the compared one
+            sz = runner.sizes(dev, n_script)
+            xs = runner.make_input(step, sz["script"], dev)
+            results.append(_compare_probe(K_probe.chain(xs, step, reps),
+                                          K_probe.chain_plain(xs, step, reps)))
+            xf = runner.make_input(step, sz["fill"], dev)
+            out, ms = _timed(lambda: K_probe.chain(xf, step, reps), 20)
+            ref, plain_ms = _timed(
+                lambda: K_probe.chain_plain(xf, step, reps), 1)
+            results.append(_compare_probe(out, ref))
+            library_ms = None
+            if library is not None:
+                lib, library_ms = _timed(lambda: library(xf, reps), 20)
+                results.append(_compare_probe(lib, ref))
+            mism = sum(m for m, _ in results)
+            err = max(e for _, e in results)
+            rate = sms * per_sm_clk * max_clock_mhz * 1e6
+            b_ms, b_by = larger(
+                2 * xf.numel() * xf.element_size() / MEM_BYTES_PER_S * 1e3,
+                xf.numel() * reps * ops_per_rep / rate * 1e3)
+            line = dict(kernel="probe_" + step, section=section,
+                        replaces=runner.SECTIONS[section][3].split()[0],
+                        mismatches=mism, max_abs_err=err, n=xf.numel(),
+                        reps=reps, ms=ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"check probe_{step}: " + json.dumps(line))
+            report.setdefault("checks", {})["probe_" + step] = line
+            probe_checks[step] = line
+            if mism != 0:
+                failures.append(f"probe {step}: {mism} mismatches "
+                                "(kernel, plain version or library call)")
+        # the probe runner, every chain section, launches counted
+        ops.reset_launches()
+        for section in runner.SECTIONS:
+            probe_recs[section] = runner.run_section(section, dev)
+            print("probe " + json.dumps(probe_recs[section]))
+        probe_counts = ops.launch_counts()
+        report["probes"] = probe_recs
+        failures.extend(f"probe {step} was not launched by the probe runner"
+                        for step in PROBES
+                        if probe_counts["probe_" + step] <= 0)
+        # the probe bound of every phase-3 check, from the card-filling rates
+        rate = {s: probe_recs[s]["fill"]["G_ops_per_s"] * 1e9
+                for s in ("gl", "sbox", "mul")}
+        for key, c in report["checks"].items():
+            if c["kernel"].startswith("probe_"):
+                continue
+            if "bb" in c["kernel"]:
+                t_ops = c["field_muls"] * MULS_PER_FIELD_MUL / rate["mul"]
+            elif c["sboxes"] is not None:
+                t_ops = c["sboxes"] / rate["sbox"]
+            else:
+                t_ops = c["field_muls"] / rate["gl"]
+            c["probe_bound_ms"], c["probe_bound_by"] = larger(
+                c["bytes"] / MEM_BYTES_PER_S * 1e3, t_ops * 1e3)
+            print(f"probe bound {key}: " + json.dumps(
+                {k: c[k] for k in ("kernel", "ms", "bound_ms",
+                                   "probe_bound_ms", "probe_bound_by")}))
+    except Exception as e:
+        failures.append(f"probe phase: {type(e).__name__}: {e}")
 
     # -- phase 4: the main path of each field ------------------------------
     def load(field, bits):
@@ -316,6 +496,27 @@ def main() -> int:
         except Exception as e:
             failures.append(f"{field} main path: {type(e).__name__}: {e}")
 
+    # the rule-2 order: calls per 2^12 prove x (ms - probe bound), a call
+    # being the checked one (a Merkle call is 7 launches, an LDE 2), with
+    # the same against the data-sheet bound beside it
+    ranking = []
+    for name, (_, _, counter) in SOURCES.items():
+        c = checks.get(name)
+        if c is None:
+            continue
+        calls = counts.get(counter, 0) / c["launches_per_call"]
+        ranking.append({
+            "kernel": name, "launches": counts.get(counter, 0),
+            "launches_per_call": c["launches_per_call"], "ms": c["ms"],
+            "probe_bound_ms": c.get("probe_bound_ms"),
+            "bound_ms": c["bound_ms"],
+            "excess_ms": calls * (c["ms"] - c.get("probe_bound_ms", 0)),
+            "excess_over_data_sheet_ms": calls * (c["ms"] - c["bound_ms"]),
+            "ms_over_bound": c["ms"] / c["bound_ms"]})
+    ranking.sort(key=lambda r: -r["excess_ms"])
+    report["ranking"] = ranking
+    print("rule-2 ranking: " + json.dumps(ranking))
+
     os.makedirs(os.path.join(ROOT, OUT_DIR), exist_ok=True)
     with open(os.path.join(ROOT, OUT_DIR, "chip_smoke_report.json"),
               "w") as f:
@@ -325,34 +526,8 @@ def main() -> int:
             print("FAIL " + msg, file=sys.stderr)
         return 1
 
-    sources = {
-        "ntt_gl": ("plonky2_goldibear_torch/csrc/ntt_gl.cu",
-                   "plonky2_goldibear_tpu/ops/ntt.py:150", "ntt"),
-        "poseidon_gl_permute": (
-            "plonky2_goldibear_torch/csrc/poseidon_gl.cu",
-            "plonky2_goldibear_tpu/ops/poseidon_gl.py:301", "permute"),
-        "poseidon_gl_leaf_sponge": (
-            "plonky2_goldibear_torch/csrc/poseidon_gl.cu",
-            "plonky2_goldibear_tpu/ops/poseidon_gl.py:354", "leaf_sponge"),
-        "poseidon_gl_merkle_levels": (
-            "plonky2_goldibear_torch/csrc/poseidon_gl.cu",
-            "plonky2_goldibear_tpu/ops/poseidon_gl.py:452", "merkle_levels"),
-        "ntt_bb": ("plonky2_goldibear_torch/csrc/ntt_bb.cu",
-                   "plonky2_goldibear_tpu/ops/ntt_bb.py:146", "ntt_bb"),
-        "poseidon2_bb_permute": (
-            "plonky2_goldibear_torch/csrc/poseidon2_bb.cu",
-            "plonky2_goldibear_tpu/ops/poseidon2_bb.py:161", "p2_permute"),
-        "poseidon2_bb_leaf_sponge": (
-            "plonky2_goldibear_torch/csrc/poseidon2_bb.cu",
-            "plonky2_goldibear_tpu/ops/poseidon2_bb.py:161",
-            "p2_leaf_sponge"),
-        "poseidon2_bb_merkle_levels": (
-            "plonky2_goldibear_torch/csrc/poseidon2_bb.cu",
-            "plonky2_goldibear_tpu/ops/poseidon2_bb.py:161",
-            "p2_merkle_levels"),
-    }
     kernels = []
-    for name, (src, replaces, counter) in sources.items():
+    for name, (src, replaces, counter) in SOURCES.items():
         c = checks[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -360,6 +535,16 @@ def main() -> int:
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": None})
+    for step in PROBES:
+        c = probe_checks[step]
+        kernels.append({
+            "name": "probe_" + step, "route": "cuda",
+            "source": "plonky2_goldibear_torch/csrc/probes.cu",
+            "replaces": c["replaces"],
+            "launches": probe_counts["probe_" + step],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

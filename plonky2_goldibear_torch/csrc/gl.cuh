@@ -44,4 +44,13 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
   return reduce96(t0, hi & EPS);
 }
 
+// The Poseidon S-box x^7 = x^3 x^4: four multiplies, the squarings as
+// mul(x, x).  Shared by the Poseidon kernels and the probe chains.
+__device__ __forceinline__ uint64_t sbox(uint64_t x) {
+  const uint64_t x2 = mul(x, x);
+  const uint64_t x3 = mul(x2, x);
+  const uint64_t x4 = mul(x2, x2);
+  return mul(x3, x4);
+}
+
 }  // namespace gl

@@ -43,13 +43,6 @@ __constant__ uint64_t RC[N_ROUNDS * WIDTH];
 __constant__ uint64_t CIRC[WIDTH];
 __constant__ uint64_t DIAG[WIDTH];
 
-__device__ __forceinline__ uint64_t sbox(uint64_t x) {
-  const uint64_t x2 = gl::mul(x, x);
-  const uint64_t x3 = gl::mul(x2, x);
-  const uint64_t x4 = gl::mul(x2, x2);
-  return gl::mul(x3, x4);
-}
-
 __device__ __forceinline__ void mds(uint64_t s[WIDTH]) {
   uint64_t lo[WIDTH], hi[WIDTH];
 #pragma unroll
@@ -74,14 +67,14 @@ __device__ __forceinline__ void mds(uint64_t s[WIDTH]) {
 
 __device__ __forceinline__ void full_round(uint64_t s[WIDTH], int round) {
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = sbox(gl::add(s[i], RC[round * WIDTH + i]));
+  for (int i = 0; i < WIDTH; ++i) s[i] = gl::sbox(gl::add(s[i], RC[round * WIDTH + i]));
   mds(s);
 }
 
 __device__ __forceinline__ void partial_round(uint64_t s[WIDTH], int round) {
 #pragma unroll
   for (int i = 0; i < WIDTH; ++i) s[i] = gl::add(s[i], RC[round * WIDTH + i]);
-  s[0] = sbox(s[0]);
+  s[0] = gl::sbox(s[0]);
   mds(s);
 }
 

@@ -1,15 +1,16 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch
 version: the NTT of either field (``ntt``, ``ntt_bb``), the Poseidon-GL
 permutation, leaf sponge and Merkle levels (``poseidon_gl``) and the
-Poseidon2-BabyBear ones (``poseidon2_bb``)."""
+Poseidon2-BabyBear ones (``poseidon2_bb``), and the dependent-chain probes
+of one field or integer operation (``probes``)."""
 
 from typing import Dict
 
 
 def _modules():
-    from . import ntt, ntt_bb, poseidon2_bb, poseidon_gl
+    from . import ntt, ntt_bb, poseidon2_bb, poseidon_gl, probes
 
-    return ntt, ntt_bb, poseidon_gl, poseidon2_bb
+    return ntt, ntt_bb, poseidon_gl, poseidon2_bb, probes
 
 
 def reset_launches() -> None:
@@ -20,6 +21,7 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset."""
-    ntt, ntt_bb, poseidon_gl, poseidon2_bb = _modules()
+    ntt, ntt_bb, poseidon_gl, poseidon2_bb, probes = _modules()
     return {"ntt": ntt.launches, "ntt_bb": ntt_bb.launches,
-            **poseidon_gl.launches, **poseidon2_bb.launches}
+            **poseidon_gl.launches, **poseidon2_bb.launches,
+            **probes.launches}

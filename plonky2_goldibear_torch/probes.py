@@ -1,0 +1,329 @@
+"""The probe runner: the card's measured rate for one field or integer
+operation, from a long dependent chain of it (``ops/probes.py``).
+
+    python -m plonky2_goldibear_torch.probes [section ...] [--device cpu]
+    python -m plonky2_goldibear_torch.probes sass
+
+Sections, named after the TPU probe scripts' own, and the script function
+each one replaces:
+
+==============  ==================  =========================================
+section         chain step          replaces (``scripts/``)
+==============  ==================  =========================================
+``gl``          ``gl_mul``          ``profile_poseidon.py:101`` ``bench_mulchain``,
+                                    ``profile2.py:156`` ``sec_mul``,
+                                    ``hwprobe3.py:80`` ``probe_gl``
+``sbox``        ``gl_sbox``         ``hwprobe3.py:111`` ``probe_sbox``,
+                                    ``profile_poseidon.py:133`` ``bench_sboxchain``
+``sqr``         ``gl_sqr``          ``profile_sbox2.py:58`` ``bench(kp._sqr)``
+``serial_x7``   ``gl_sbox_serial``  ``profile_sbox2.py:58`` ``bench(_sbox_serial)``
+``classic_x7``  ``gl_sbox``         ``profile_sbox2.py:58`` ``bench(kp._sbox)``
+``mul``         ``u32_mul``         ``hwprobe3.py:49`` ``probe_u32`` (mul)
+``mul16``       ``u32_mul16``       ``hwprobe3.py:49`` ``probe_u32`` (mul16)
+``add``         ``u32_add``         ``hwprobe3.py:49`` ``probe_u32`` (add)
+``fma``         ``f32_fma``         ``hwprobe3.py:49`` ``probe_u32`` (fma)
+``s8``          ``torch._int_mm``   ``hwprobe3.py:141`` ``probe_mxu_s8``
+``bf16``        ``torch.matmul``    ``hwprobe3.py:163`` ``probe_mxu_bf16``
+==============  ==================  =========================================
+
+Each chain is timed at two sizes: the script's own element count, and a
+card-filling one (SMs x 2048 threads x 4), since a dependent chain reads
+latency, not throughput, until enough warps are resident.  The time of
+one rep is the marginal (t(2r) - t(r)) / r over single launches timed with
+CUDA events, the median of 5, with r doubled from the script's reps until
+a launch takes at least 2 ms.  ``s8`` and ``bf16`` time one plain matrix
+product of the script's shapes (no kernel of the port).  Each section
+prints one JSON line: G ops/s and ns per op per thread at each size, the
+latter the time one thread spends on one rep: the time of a rep times the
+share of the elements resident at once (SMs x 2048 threads).
+
+``sass`` disassembles the built ``probes`` and ``poseidon_gl`` libraries
+(``cuobjdump -sass``) and prints, per chain, the instructions of one step
+in the main loop (its body over the steps it holds), and per Poseidon
+kernel its instruction count.
+
+Runs on the card unless ``--device cpu`` is given (plain torch versions,
+host clock, cut sizes: a rehearsal, not a device measurement); without a
+card it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from .device import resolve
+from .field import gl
+from .ops import probes as K
+
+# section -> (step, the script's element count, the script's reps, replaces)
+SECTIONS = {
+    "gl": ("gl_mul", 1 << 16, 64,
+           "scripts/profile_poseidon.py:101 bench_mulchain; "
+           "scripts/profile2.py:156 sec_mul; scripts/hwprobe3.py:80 probe_gl"),
+    "sbox": ("gl_sbox", 1 << 17, 128,
+             "scripts/hwprobe3.py:111 probe_sbox; "
+             "scripts/profile_poseidon.py:133 bench_sboxchain"),
+    "sqr": ("gl_sqr", 1 << 16, 64, "scripts/profile_sbox2.py:58 bench(_sqr)"),
+    "serial_x7": ("gl_sbox_serial", 1 << 16, 64,
+                  "scripts/profile_sbox2.py:58 bench(_sbox_serial)"),
+    "classic_x7": ("gl_sbox", 1 << 16, 64,
+                   "scripts/profile_sbox2.py:58 bench(_sbox)"),
+    "mul": ("u32_mul", 1 << 17, 512, "scripts/hwprobe3.py:49 probe_u32 mul"),
+    "mul16": ("u32_mul16", 1 << 17, 512,
+              "scripts/hwprobe3.py:49 probe_u32 mul16"),
+    "add": ("u32_add", 1 << 17, 1024, "scripts/hwprobe3.py:49 probe_u32 add"),
+    "fma": ("f32_fma", 1 << 17, 512, "scripts/hwprobe3.py:49 probe_u32 fma"),
+}
+MATMULS = {"s8": "scripts/hwprobe3.py:141 probe_mxu_s8",
+           "bf16": "scripts/hwprobe3.py:163 probe_mxu_bf16"}
+MIN_LAUNCH_S = 2e-3        # r doubles until one launch takes this long
+MAX_REPS = 1 << 24
+TRIALS = 5
+
+
+def make_input(step: str, n: int, device, seed: int = 0) -> torch.Tensor:
+    """The scripts' inputs: GL elements uniform in [0, p), u32 in
+    [1, 2^31), f32 in [0.75, 1.25)."""
+    rng = np.random.default_rng(seed)
+    dtype = K.STEPS[step][0]
+    if dtype == torch.int64:
+        return gl.from_ints(rng.integers(0, gl.P, size=n, dtype=np.uint64),
+                            device)
+    if dtype == torch.int32:
+        return torch.from_numpy(rng.integers(1, 1 << 31, size=n,
+                                             dtype=np.int32)).to(device)
+    return torch.from_numpy(rng.random(n, dtype=np.float32) * 0.5
+                            + 0.75).to(device)
+
+
+def seconds(fn: Callable[[], object], device: torch.device) -> float:
+    """Seconds of one call of fn: CUDA events on the card, the host clock
+    on the CPU."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        return start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def marginal(fn: Callable[[int], object], reps: int, device: torch.device,
+             min_s: float = MIN_LAUNCH_S) -> Dict[str, float]:
+    """Seconds per rep of fn(reps): (t(2r) - t(r)) / r, median of TRIALS,
+    r doubled from ``reps`` until one call takes ``min_s``."""
+    r = max(1, reps)
+    fn(r)                                       # build, warm up
+    while seconds(lambda: fn(r), device) < min_s and r < MAX_REPS:
+        r *= 2
+    per_rep = []
+    for _ in range(TRIALS):
+        t1 = seconds(lambda: fn(r), device)
+        t2 = seconds(lambda: fn(2 * r), device)
+        per_rep.append((t2 - t1) / r if t2 > t1 else t2 / (2 * r))
+    return {"reps": r, "s_per_rep": statistics.median(per_rep)}
+
+
+def resident(device: torch.device) -> int:
+    """Threads the card holds at once (the CPU: 1, it runs one chain at a
+    time)."""
+    if device.type != "cuda":
+        return 1
+    prop = torch.cuda.get_device_properties(device)
+    return prop.multi_processor_count * prop.max_threads_per_multi_processor
+
+
+def sizes(device: torch.device, n_script: int) -> Dict[str, int]:
+    """The script's element count and a card-filling one; on the CPU both
+    cut (a rehearsal of the control flow)."""
+    if device.type == "cuda":
+        return {"script": n_script, "fill": 4 * resident(device)}
+    return {"script": n_script >> 6, "fill": 4096}
+
+
+def card_name(device: torch.device) -> str:
+    if device.type != "cuda":
+        return "cpu"
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={device.index}"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    return out or torch.cuda.get_device_name(device)
+
+
+def run_section(section: str, device=None) -> Dict:
+    """Time one section at both sizes; returns its JSON record."""
+    dev = resolve(device)
+    if section in MATMULS:
+        return run_matmul(section, dev)
+    step, n_script, reps, replaces = SECTIONS[section]
+    min_s = MIN_LAUNCH_S if dev.type == "cuda" else 0.02
+    rec = {"section": section, "step": step, "replaces": replaces,
+           "device": dev.type, "card": card_name(dev),
+           "route": "cuda" if dev.type == "cuda" else "plain"}
+    for label, n in sizes(dev, n_script).items():
+        x = make_input(step, n, dev)
+        m = marginal(lambda r: K.chain(x, step, r), reps, dev, min_s)
+        rec[label] = {"n": n, "reps": m["reps"],
+                      "G_ops_per_s": n / m["s_per_rep"] / 1e9,
+                      "ns_per_op_per_thread": m["s_per_rep"] * 1e9
+                      * min(n, resident(dev)) / n}
+    return rec
+
+
+def run_matmul(section: str, dev: torch.device) -> Dict:
+    """One (m, k) x (k, n) product of the script's shapes, median of 5."""
+    m, k, n = (1024, 1024, 2048) if dev.type == "cuda" else (128, 128, 256)
+    g = torch.Generator().manual_seed(0)
+    if section == "s8":
+        a = torch.randint(-100, 100, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-100, 100, (k, n), generator=g, dtype=torch.int8)
+        a, b = a.to(dev), b.to(dev)
+        fn = lambda: torch._int_mm(a, b)          # noqa: E731
+    else:
+        a = torch.rand((m, k), generator=g).to(dev, torch.bfloat16)
+        b = torch.rand((k, n), generator=g).to(dev, torch.bfloat16)
+        fn = lambda: torch.matmul(a, b)           # noqa: E731
+    fn()
+    t = statistics.median(seconds(fn, dev) for _ in range(TRIALS))
+    return {"section": section, "replaces": MATMULS[section],
+            "device": dev.type, "card": card_name(dev),
+            "route": "library", "shape": [m, k, n], "ms": t * 1e3,
+            "T_macs_per_s": m * k * n / t / 1e12}
+
+
+# -- SASS ---------------------------------------------------------------------
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+_STRUCTS = {"gl_mul": "GlMul", "gl_sqr": "GlSqr", "gl_sbox": "GlSbox",
+            "gl_sbox_serial": "GlSboxSerial", "u32_mul": "U32Mul",
+            "u32_mul16": "U32Mul16", "u32_add": "U32Add", "f32_fma": "F32Fma"}
+
+
+def parse_sass(text: str) -> Dict[str, List]:
+    """cuobjdump -sass output -> {function: [(address, instruction)]}."""
+    funcs: Dict[str, List] = {}
+    cur = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :")[1].strip(), [])
+        elif cur is not None:
+            m = _INSN.search(line)
+            if m:
+                cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return funcs
+
+
+def _opcode(insn: str) -> str:
+    words = insn.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def loops(code: List) -> List[List]:
+    """The bodies of the backward branches, largest first: instructions
+    from the branch target to the branch."""
+    out = []
+    for addr, insn in code:
+        m = re.search(r"\bBRA\s+(?:`?\(?)(0x[0-9a-f]+)", insn)
+        if m and int(m.group(1), 16) <= addr:
+            lo = int(m.group(1), 16)
+            out.append([(a, i) for a, i in code if lo <= a <= addr])
+    return sorted(out, key=len, reverse=True)
+
+
+def _histogram(code: List) -> Dict[str, int]:
+    hist: Dict[str, int] = {}
+    for _, insn in code:
+        op = _opcode(insn)
+        hist[op] = hist.get(op, 0) + 1
+    return dict(sorted(hist.items(), key=lambda kv: -kv[1]))
+
+
+def _cuobjdump(path: str) -> str:
+    from .ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def sass_counts(dump_dir: str = None) -> Dict:
+    """Instruction counts of the chain steps and the Poseidon-GL kernels
+    from the built libraries' SASS; the listings go to dump_dir if given."""
+    from .ops import _build
+
+    _build.build_all(("probes", "poseidon_gl"))
+    out = {"chains": {}, "poseidon_gl": {}}
+    for name in ("probes", "poseidon_gl"):
+        text = _cuobjdump(_build._lib_path(name))
+        if dump_dir:
+            os.makedirs(dump_dir, exist_ok=True)
+            with open(os.path.join(dump_dir, name + ".sass"), "w") as f:
+                f.write(text)
+        for func, code in parse_sass(text).items():
+            if name == "probes":
+                step = next((s for s, st in _STRUCTS.items()
+                             if f"{len(st)}{st}E" in func), None)
+                if step is None:
+                    continue
+                body = loops(code)[0]
+                out["chains"][step] = {
+                    "unroll": K.unroll(step), "loop_body": len(body),
+                    "per_step": len(body) / K.unroll(step),
+                    "opcodes": _histogram(body)}
+            else:
+                out["poseidon_gl"][func] = {
+                    "instructions": len(code),
+                    "loops": [len(b) for b in loops(code)],
+                    "opcodes": _histogram(code)}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m plonky2_goldibear_torch.probes",
+        description="Rates of one field or integer operation on the card.")
+    ap.add_argument("sections", nargs="*",
+                    help=f"of {list(SECTIONS) + list(MATMULS) + ['sass']} "
+                         "(default: every chain section)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (plain torch, cut sizes)")
+    ap.add_argument("--sass-dir", default=None,
+                    help="with sass: write the listings here")
+    args = ap.parse_args(argv)
+    names = args.sections or list(SECTIONS)
+    for name in names:
+        if name not in SECTIONS and name not in MATMULS and name != "sass":
+            ap.error(f"unknown section {name!r}")
+    dev = resolve(args.device)
+    for name in names:
+        if name == "sass":
+            rec = sass_counts(args.sass_dir)
+        else:
+            rec = run_section(name, dev)
+        print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

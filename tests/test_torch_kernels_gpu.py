@@ -6,15 +6,18 @@ Run on a machine with an NVIDIA GPU and nvcc:
 
 (``--noconftest``: ``tests/conftest.py`` imports jax, which a machine set
 up for the port need not have.)  Without a card every test here skips.  Tolerance zero: exact field
-arithmetic.
+arithmetic, except the f32 FMA probe chain (relative 1e-5: the kernel
+rounds once with ``fmaf``, the plain version rounds a float64 sum).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from plonky2_goldibear_torch import probes as runner
 from plonky2_goldibear_torch.field import bb, gl
 from plonky2_goldibear_torch.ops import ntt, ntt_bb
+from plonky2_goldibear_torch.ops import probes as KP
 from plonky2_goldibear_torch.ops import poseidon2_bb as K2
 from plonky2_goldibear_torch.ops import poseidon_gl as K
 
@@ -99,3 +102,18 @@ def test_poseidon2_bb_merkle_levels_kernel(cuda, n, layers):
     got, ref = K2.merkle_levels(d, layers), K2.merkle_levels_plain(d, layers)
     assert len(got) == len(ref) == layers
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+# -- the probe chains ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 16])
+@pytest.mark.parametrize("step", list(KP.STEPS))
+def test_probe_chain_kernel(cuda, step, n):
+    x = runner.make_input(step, n, cuda, seed=n)
+    reps = KP.unroll(step) + 5      # one pass of the main loop, a remainder
+    got, ref = KP.chain(x, step, reps), KP.chain_plain(x, step, reps)
+    if step == "f32_fma":
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(got, ref)
