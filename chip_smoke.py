@@ -9,7 +9,11 @@
    bit, at the shapes of a 2^12-row proof of each field (Goldilocks: NTT,
    Poseidon permutation, leaf sponge, Merkle levels; BabyBear: NTT,
    Poseidon2 permutation, leaf sponge, Merkle levels), with CUDA-event
-   times;
+   times; then every one of these kernels again at each shape that one
+   2^12 prove of its field launches it on (recorded from a prove through
+   ``ops.calls``), and Goldilocks Merkle trees of 2^11 and 2^7 digests to
+   a cap of 16 and of 2^15 to the root, with each GL tree's launch plan
+   printed;
 4. for each field (Goldilocks under standard_recursion_config_gl, then
    BabyBear under standard_recursion_config_bb), loads the committed
    arithmetic-chain fixtures (circuit and witness as data) through
@@ -17,7 +21,12 @@
    one, then the 2^12 one (that field's main path), timed over 3 warm
    proves, with every kernel's launches counted over one prove (the counts
    are set to 0 just before it).  Each proof must equal the fixture's
-   stored JAX proof field by field.
+   stored JAX proof field by field.  One more warm 2^12 prove of each
+   field runs under torch.profiler (CUDA activities): per kernel name its
+   launches and summed device ms, and the device-busy share: the summed
+   kernel and copy time over the median wall time of the 3 unprofiled
+   proves (the profiled prove's own wall time, which the profiler
+   lengthens, is printed beside it).
 
 Between 3 and 4, the probe phase: each dependent-chain probe kernel
 (``ops/probes.py``: GL multiply, squaring, two x^7 S-boxes, u32 multiply,
@@ -33,9 +42,9 @@ S-boxes per Poseidon-GL permutation at the measured S-box rate, one GL
 multiply per NTT butterfly at the measured multiply rate, and 4 u32
 multiplies per BabyBear product at the measured u32 multiply rate (each
 the larger of it and the byte bound).  At the end it ranks the path
-kernels by calls per prove x (ms - probe bound), calls being launches per
-prove over the launches of the checked call, with the same excess over
-the data-sheet bound beside it.
+kernels by their excess in one 2^12 prove: the sum, over the prove's own
+calls of the kernel, of (ms - probe bound) at each call's shape, with the
+same excess over the data-sheet bound beside it.
 
 It prints a JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -63,8 +72,12 @@ MULS_PER_FIELD_MUL = 4        # GL 64x64 -> 128 from four 32x32 products;
                               # BB Montgomery: 32x32 -> 64 (two), m, m p
 FMA_RTOL = 1e-5               # fmaf rounds once, the plain version twice
 OUT_DIR = "chip_smoke_out"    # the report, listed in .gitignore
+PROFILE_TOP = 25              # kernels printed per profiled prove
 MAIN_BITS = 12                # the benchmark circuit: 2^12 rows
-SMALL_BITS = 6                # a second fixture: every level in the tail
+SMALL_BITS = 6                # a second fixture: small trees, mostly tail
+# Merkle trees checked besides the prove's: FRI layers to a cap of 16 and
+# a tree to its root (one subtree for the tail)
+EXTRA_TREES = ((1 << 11, 7), (1 << 7, 3), (1 << 15, 15))
 GL_PERM_MULS = 8 * 12 * 4 + 22 * 4            # field muls per permutation
 GL_PERM_SBOXES = 8 * 12 + 22                  # S-boxes per permutation
 BB_PERM_MULS = 8 * 16 * 4 + 13 * (4 + 16 + 15)
@@ -115,6 +128,15 @@ SOURCES = {
         "plonky2_goldibear_tpu/ops/poseidon2_bb.py:161",
         "p2_merkle_levels"),
 }
+
+
+# a launch counter -> its kernel
+KERNEL_OF = {counter: name for name, (_, _, counter) in SOURCES.items()}
+
+
+def _shape_key(call) -> str:
+    """The report key of the check at a recorded call's shape."""
+    return "prove_" + "_".join(map(str, call))
 
 
 def _smi(query: str) -> str:
@@ -182,6 +204,36 @@ def _compare_probe(a, b):
     a, b = torch.nan_to_num(a).double(), torch.nan_to_num(b).double()
     bad = ~torch.isclose(a, b, rtol=FMA_RTOL, atol=0)
     return int(bad.sum()), float((a - b).abs().max())
+
+
+def _profile(fn, wall_ms_unprofiled: float):
+    """One call of fn under torch.profiler (CUDA activities): per kernel
+    name its launches and summed device ms, and the device-busy share, the
+    summed kernel and copy time over ``wall_ms_unprofiled`` (the call's
+    wall time without the profiler, which lengthens it); the share over
+    the profiled wall time beside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, ms = per.get(e.name, (0, 0.0))
+            per[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    busy = sum(ms for _, ms in per.values())
+    return {"wall_ms": wall_ms_unprofiled, "profiled_wall_ms": wall_ms,
+            "device_ms": busy,
+            "device_busy_share": busy / wall_ms_unprofiled,
+            "device_busy_share_of_profiled_wall": busy / wall_ms,
+            "kernels": [{"name": k, "launches": n, "ms": ms}
+                        for k, (n, ms) in sorted(per.items(),
+                                                 key=lambda kv: -kv[1][1])]}
 
 
 def main() -> int:
@@ -351,6 +403,69 @@ def main() -> int:
     except Exception as e:
         failures.append(f"BabyBear kernel checks: {type(e).__name__}: {e}")
 
+    # every path kernel at each shape one 2^12 prove of its field launches
+    # it on, recorded from that prove, and the GL Merkle trees of other caps
+    def prove_shape_check(call):
+        counter, *shape = call
+        name, key = KERNEL_OF[counter], _shape_key(call)
+        is_gl = not (counter.startswith("p2_") or counter == "ntt_bb")
+        make, es = (rand, 8) if is_gl else (rand_bb, 4)
+        if counter in ("ntt", "ntt_bb"):
+            b, n, r = shape
+            K = K_ntt if is_gl else K_nttb
+            x = make(b, n)
+            x[:, n >> r:] = 0
+            check(key, name, lambda: K.fft(x, r), lambda: K.fft_plain(x, r),
+                  20, (b * (n >> r) + b * n) * es,
+                  (n.bit_length() - 1 - r) * (b * n // 2))
+            return
+        K = K_pos if is_gl else K_p2
+        perm_muls = GL_PERM_MULS if is_gl else BB_PERM_MULS
+        if counter in ("permute", "p2_permute"):
+            (n,) = shape
+            st = make(n, K.WIDTH)
+            perms, nbytes = n, 2 * st.numel() * es
+            kernel, plain = (lambda: K.permute(st),
+                             lambda: K.permute_plain(st))
+        elif counter in ("leaf_sponge", "p2_leaf_sponge"):
+            n, length, num_out = shape
+            leaves = make(n, length)
+            perms = n * -(-length // K.RATE)
+            nbytes = (leaves.numel() + n * num_out) * es
+            kernel, plain = (lambda: K.hash_leaves(leaves, num_out),
+                             lambda: K.hash_leaves_plain(leaves, num_out))
+        else:
+            n, layers = shape
+            d0 = make(n, K.NUM_HASH_OUT)
+            perms = n - (n >> layers)
+            nbytes = (n + perms) * K.NUM_HASH_OUT * es
+            kernel, plain = (lambda: K.merkle_levels(d0, layers),
+                             lambda: K.merkle_levels_plain(d0, layers))
+            if is_gl:
+                print(f"merkle plan 2^{n.bit_length() - 1} x {layers} "
+                      "layers: " + json.dumps(K.merkle_plan(n, layers, sms)))
+        check(key, name, kernel, plain, 10,
+              nbytes, perms * perm_muls,
+              sboxes=perms * GL_PERM_SBOXES if is_gl else None)
+
+    prove_calls = {}
+    try:
+        for field in ("goldilocks", "babybear"):
+            circuit, _ = load_fixture(MAIN_BITS, device="cuda", field=field)
+            ops.calls = []
+            try:
+                prover.prove(circuit, device="cuda")
+            finally:
+                prove_calls[field], ops.calls = ops.calls, None
+        report["prove_calls"] = prove_calls
+        shapes = {tuple(c) for calls in prove_calls.values() for c in calls}
+        shapes |= {("merkle_levels", n, layers) for n, layers in EXTRA_TREES}
+        for call in sorted(shapes):
+            prove_shape_check(call)
+            report["checks"][_shape_key(call)]["call"] = list(call)
+    except Exception as e:
+        failures.append(f"prove-shape checks: {type(e).__name__}: {e}")
+
     # -- phase 3b: the probe chains ------------------------------------------
     from plonky2_goldibear_torch import probes as runner
     from plonky2_goldibear_torch.ops import probes as K_probe
@@ -488,6 +603,19 @@ def main() -> int:
             print(f"{field} launches in one prove: " + json.dumps(run_counts))
             report[field] = dict(prove_s=times, phases=median_phases,
                                  launches=run_counts)
+            # one more warm prove under the profiler
+            prof = _profile(lambda: prover.prove(circuit, device="cuda"),
+                            statistics.median(times) * 1e3)
+            report[field]["profile"] = prof
+            print(f"{field} profile of one prove: device "
+                  f"{prof['device_ms']:.2f} ms; busy share "
+                  f"{prof['device_busy_share']:.4f} of the median "
+                  f"unprofiled prove ({prof['wall_ms']:.2f} ms), "
+                  f"{prof['device_busy_share_of_profiled_wall']:.4f} of the "
+                  f"profiled one ({prof['profiled_wall_ms']:.2f} ms)")
+            for k in prof["kernels"][:PROFILE_TOP]:
+                print(f"  {k['ms']:10.4f} ms {k['launches']:6d} x "
+                      f"{k['name'][:110]}")
             for k in counters:
                 counts[k] = run_counts[k]
                 if run_counts[k] <= 0:
@@ -496,23 +624,25 @@ def main() -> int:
         except Exception as e:
             failures.append(f"{field} main path: {type(e).__name__}: {e}")
 
-    # the rule-2 order: calls per 2^12 prove x (ms - probe bound), a call
-    # being the checked one (a Merkle call is 7 launches, an LDE 2), with
-    # the same against the data-sheet bound beside it
+    # the rule-2 order: each kernel's excess in one 2^12 prove, the sum
+    # over its recorded calls of (ms - probe bound) at the call's shape,
+    # with the same against the data-sheet bound beside it
     ranking = []
     for name, (_, _, counter) in SOURCES.items():
-        c = checks.get(name)
-        if c is None:
+        lines = [report.get("checks", {}).get(_shape_key(c))
+                 for calls in prove_calls.values() for c in calls
+                 if c[0] == counter]
+        if not lines or not all(x and "probe_bound_ms" in x for x in lines):
             continue
-        calls = counts.get(counter, 0) / c["launches_per_call"]
+        ms = sum(x["ms"] for x in lines)
         ranking.append({
             "kernel": name, "launches": counts.get(counter, 0),
-            "launches_per_call": c["launches_per_call"], "ms": c["ms"],
-            "probe_bound_ms": c.get("probe_bound_ms"),
-            "bound_ms": c["bound_ms"],
-            "excess_ms": calls * (c["ms"] - c.get("probe_bound_ms", 0)),
-            "excess_over_data_sheet_ms": calls * (c["ms"] - c["bound_ms"]),
-            "ms_over_bound": c["ms"] / c["bound_ms"]})
+            "calls": len(lines), "ms": ms,
+            "probe_bound_ms": sum(x["probe_bound_ms"] for x in lines),
+            "bound_ms": sum(x["bound_ms"] for x in lines),
+            "excess_ms": sum(x["ms"] - x["probe_bound_ms"] for x in lines),
+            "excess_over_data_sheet_ms": sum(x["ms"] - x["bound_ms"]
+                                             for x in lines)})
     ranking.sort(key=lambda r: -r["excess_ms"])
     report["ranking"] = ranking
     print("rule-2 ranking: " + json.dumps(ranking))

@@ -1,0 +1,110 @@
+"""Device times of one tree's Poseidon-GL leaf sponge and Merkle levels at
+the shapes of a Goldilocks prove, to hold two trees' kernels against each
+other on one card.
+
+    python plonky2_goldibear_torch/kernel_times.py --root DIR \\
+        --report chip_smoke_out/chip_smoke_report.json [--out FILE]
+
+It imports ``plonky2_goldibear_torch`` from DIR, a checkout of any tree
+whose port has ``ops.poseidon_gl.hash_leaves(inputs, num_outputs)`` and
+``merkle_levels(d0, num_layers)`` with their plain versions.  The shapes
+are those that ``chip_smoke.py`` checked the two kernels at, read from its
+report: every sponge and Merkle call of one GL 2^12 prove, and its extra
+trees.  For each shape it prints the ms per call (CUDA events over 10
+calls after a warm-up, median of 5 trials; the wrapper's host time
+included, as in ``chip_smoke.py``) and whether the output equals the
+tree's plain version.  One JSON line; card only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+KINDS = ("leaf_sponge", "merkle_levels")
+CALLS_PER_TRIAL = 10
+TRIALS = 5
+P = 0xFFFFFFFF00000001          # the Goldilocks prime
+
+
+def shapes_of(report: dict):
+    """The (kind, *shape) of every sponge and Merkle check of the report's
+    prove-shape phase, in the order checked."""
+    return [tuple(c["call"]) for c in report["checks"].values()
+            if c.get("call") and c["call"][0] in KINDS]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", required=True,
+                    help="the tree whose plonky2_goldibear_torch is timed")
+    ap.add_argument("--report", required=True,
+                    help="a chip_smoke.py report holding the shapes")
+    ap.add_argument("--out", default=None, help="also write the line here")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path[0:1] = [root]       # not this file's directory
+    from plonky2_goldibear_torch.ops import poseidon_gl as K
+
+    with open(args.report) as f:
+        shapes = shapes_of(json.load(f))
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(7)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.integers(0, P, size=shape, dtype=np.uint64)
+                                .view(np.int64)).to(dev)
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize(dev)
+        trials = []
+        for _ in range(TRIALS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CALLS_PER_TRIAL):
+                fn()
+            end.record()
+            torch.cuda.synchronize(dev)
+            trials.append(start.elapsed_time(end) / CALLS_PER_TRIAL)
+        return statistics.median(trials)
+
+    times = []
+    for kind, *shape in shapes:
+        if kind == "leaf_sponge":
+            n, length, num_out = shape
+            x = rand(n, length)
+            fn = lambda: K.hash_leaves(x, num_out)          # noqa: E731
+            equal = torch.equal(fn(), K.hash_leaves_plain(x, num_out))
+        else:
+            n, layers = shape
+            x = rand(n, 4)
+            fn = lambda: K.merkle_levels(x, layers)         # noqa: E731
+            equal = all(torch.equal(a, b) for a, b in zip(
+                fn(), K.merkle_levels_plain(x, layers)))
+        times.append({"call": [kind, *shape], "ms": ms(fn), "equal": equal})
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    line = json.dumps({"root": root, "card": card, "times": times})
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0 if all(t["equal"] for t in times) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

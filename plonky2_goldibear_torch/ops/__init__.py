@@ -6,6 +6,15 @@ of one field or integer operation (``probes``)."""
 
 from typing import Dict
 
+# set to a list to record each call of a main-path kernel wrapper on the
+# card as (its launch counter, *the shape it launched on)
+calls = None
+
+
+def record(counter: str, *shape: int) -> None:
+    if calls is not None:
+        calls.append((counter, *shape))
+
 
 def _modules():
     from . import ntt, ntt_bb, poseidon2_bb, poseidon_gl, probes

@@ -25,6 +25,7 @@ from typing import List, Tuple
 import torch
 
 from ..field import gl, host
+from . import record
 
 LOG_TILE = 12           # must match ntt_gl_pass in csrc/ntt_gl.cu
 launches = 0            # kernel launches since the last reset
@@ -193,6 +194,7 @@ def fft(x: torch.Tensor, zero_prefix_log: int = 0) -> torch.Tensor:
     if check_input(x, gl):
         return x.clone()
     if x.is_cuda:
+        record("ntt", x.numel() // x.shape[-1], x.shape[-1], zero_prefix_log)
         out, k = launch_passes(x.contiguous(), zero_prefix_log, gl,
                                "ntt_gl", LOG_TILE)
         launches += k

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..field import bb
-from . import ntt
+from . import ntt, record
 
 LOG_TILE = 13           # must match ntt_bb_pass in csrc/ntt_bb.cu
 launches = 0            # kernel launches since the last reset
@@ -49,6 +49,8 @@ def fft(x: torch.Tensor, zero_prefix_log: int = 0) -> torch.Tensor:
     if ntt.check_input(x, bb):
         return x.clone()
     if x.is_cuda:
+        record("ntt_bb", x.numel() // x.shape[-1], x.shape[-1],
+               zero_prefix_log)
         out, k = ntt.launch_passes(x.contiguous(), zero_prefix_log, bb,
                                    "ntt_bb", LOG_TILE)
         launches += k

@@ -34,6 +34,7 @@ import torch
 
 from ..field import bb
 from ..hash import _poseidon2_bb_constants as C
+from . import record
 
 WIDTH = C.SPONGE_WIDTH          # 16
 RATE = C.SPONGE_RATE            # 8
@@ -219,6 +220,7 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     _check_cuda(state, "permute")
     out = torch.empty_like(state)
     n = state.numel() // WIDTH
+    record("p2_permute", n)
     err = _lib(state.device).poseidon2_bb_permute(
         state.data_ptr(), out.data_ptr(), n, _build.stream_ptr(state.device))
     _build.check(err, "poseidon2_bb_permute")
@@ -243,6 +245,7 @@ def hash_leaves(inputs: torch.Tensor,
     inputs = inputs.contiguous()
     _check_cuda(inputs, "hash_leaves")
     n, length = inputs.shape
+    record("p2_leaf_sponge", n, length, num_outputs)
     out = torch.empty((n, num_outputs), dtype=bb.DTYPE, device=inputs.device)
     err = _lib(inputs.device).poseidon2_bb_leaf_sponge(
         inputs.data_ptr(), out.data_ptr(), n, length, num_outputs,
@@ -266,6 +269,7 @@ def merkle_levels(d0: torch.Tensor, num_layers: int) -> List[torch.Tensor]:
 
     d0 = d0.contiguous()
     _check_cuda(d0, "merkle_levels")
+    record("p2_merkle_levels", n, num_layers)
     lib = _lib(d0.device)
     stream = _build.stream_ptr(d0.device)
     levels = []

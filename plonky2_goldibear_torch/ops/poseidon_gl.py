@@ -4,16 +4,18 @@ versions: the width-12 permutation, the leaf sponge and the Merkle levels.
 Replaces the TPU kernels of ``plonky2_goldibear_tpu/ops/poseidon_gl.py``:
 ``permute_cols`` -> ``permute``, ``hash_cols_no_pad`` -> ``hash_leaves``,
 ``tree_tail_cols`` / ``build_levels_cols`` -> ``merkle_levels``.  On the
-H100 all three are bound by integer multiplies (1888 32-bit products per
-permutation against 192 bytes of state in and out); the kernels keep each
-state in registers for the whole permutation, the round constants in
-constant memory, and run the MDS as a small-integer circulant with exact
-64-bit limb sums (see the note in the source).  Layouts follow the JAX
-package's public functions: states (..., 12), leaf rows (n, L), digest
-levels (w, 4) in natural node order.
+H100 all three are bound by integer instruction issue (a permutation is
+118 S-boxes and 30 MDS layers against 192 bytes of state in and out).
+The kernels keep each state in the registers of a group of 1, 2, 4 or 12
+threads; ``group_for`` and ``merkle_plan`` pick the group and the block
+size of each launch from the number of states and SMs, so that the
+narrow Merkle levels still reach every SM (see the note in the source).
+Layouts follow the JAX package's public functions: states (..., 12), leaf
+rows (n, L), digest levels (w, 4) in natural node order.
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
-version for a CPU tensor; there is no other dispatch.
+version for a CPU tensor; there is no other dispatch.  The plain versions
+keep the reference's naive round schedule: they are the yardstick.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from ..field import gl
 from ..hash import _poseidon_gl_constants as C
+from . import record
 
 WIDTH = C.SPONGE_WIDTH          # 12
 RATE = C.SPONGE_RATE            # 8
@@ -34,7 +37,6 @@ NUM_HASH_OUT = 4
 HALF_FULL = C.HALF_N_FULL_ROUNDS
 N_PARTIAL = C.N_PARTIAL_ROUNDS
 N_ROUNDS = 2 * HALF_FULL + N_PARTIAL
-TAIL_W = 512                    # must match csrc/poseidon_gl.cu
 
 launches = {"permute": 0, "leaf_sponge": 0, "merkle_levels": 0}
 
@@ -127,6 +129,53 @@ def merkle_levels_plain(d0: torch.Tensor, num_layers: int
 
 
 # --------------------------------------------------------------------------
+# launch geometry (pure functions of the shapes and the SM count)
+# --------------------------------------------------------------------------
+
+GROUPS = (1, 2, 4, 12)      # threads per state the kernels are built for
+SPAN = {1: 1, 2: 2, 4: 4, 12: 16}   # threads a group occupies
+FILL_PER_SM = 128           # threads per SM below which a launch takes a
+                            # larger group (one warp per scheduler)
+TAIL_PARENTS = 8            # a subtree's parents at the tail's first level
+TAIL_MAX_LAYERS = TAIL_PARENTS.bit_length()   # 4; csrc/poseidon_gl.cu's
+
+
+def group_for(states: int, sms: int) -> int:
+    """Threads per state for a launch of ``states`` permutations: the
+    fewest that still give FILL_PER_SM threads to every SM."""
+    for g in GROUPS:
+        if states * g >= FILL_PER_SM * sms:
+            return g
+    return GROUPS[-1]
+
+
+def block_for(threads: int, sms: int) -> int:
+    """Threads per block: 128, fewer (down to one warp) where that spreads
+    the launch over more SMs."""
+    return min(128, max(32, threads // sms // 32 * 32))
+
+
+def merkle_plan(n: int, num_layers: int, sms: int) -> List[tuple]:
+    """The launches of ``merkle_levels`` for n digests: ("level", parents,
+    group, threads per block) one level each, then at most one ("tail",
+    width, layers, subtrees, threads per block) for the top levels, once a
+    subtree of the cap has at most TAIL_PARENTS parents at its first
+    level."""
+    plan = []
+    width, left = n, num_layers
+    while left > 0:
+        parents = width // 2
+        subtrees = width >> left
+        if parents // subtrees <= TAIL_PARENTS:    # left <= TAIL_MAX_LAYERS
+            plan.append(("tail", width, left, subtrees, 16 << (left - 1)))
+            break
+        g = group_for(parents, sms)
+        plan.append(("level", parents, g, block_for(parents * SPAN[g], sms)))
+        width, left = parents, left - 1
+    return plan
+
+
+# --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -139,23 +188,25 @@ def _lib(device):
     lib = _build.lib("poseidon_gl")
     if device.index not in _CONSTANTS_SET:
         p64 = ctypes.POINTER(ctypes.c_uint64)
-        lib.poseidon_gl_set_constants.argtypes = [p64, p64, p64]
+        lib.poseidon_gl_set_constants.argtypes = [p64]
         rc = np.array(C.ALL_ROUND_CONSTANTS, dtype=np.uint64)
-        circ = np.array(C.MDS_MATRIX_CIRC, dtype=np.uint64)
-        diag = np.array(C.MDS_MATRIX_DIAG, dtype=np.uint64)
         with torch.cuda.device(device):
-            err = lib.poseidon_gl_set_constants(
-                rc.ctypes.data_as(p64), circ.ctypes.data_as(p64),
-                diag.ctypes.data_as(p64))
+            err = lib.poseidon_gl_set_constants(rc.ctypes.data_as(p64))
         _build.check(err, "poseidon_gl_set_constants")
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.poseidon_gl_permute.argtypes = [vp, vp, ll, vp]
-        lib.poseidon_gl_leaf_sponge.argtypes = [vp, vp, ll, i32, i32, vp]
-        lib.poseidon_gl_merkle_level.argtypes = [vp, vp, ll, vp]
+        lib.poseidon_gl_leaf_sponge.argtypes = [vp, vp, ll, i32, i32, i32,
+                                                i32, vp]
+        lib.poseidon_gl_merkle_level.argtypes = [vp, vp, ll, i32, i32, vp]
         lib.poseidon_gl_merkle_tail.argtypes = [vp, vp, i32, i32, vp]
-        assert lib.poseidon_gl_tail_width() == TAIL_W
+        assert lib.poseidon_gl_tail_max_layers() == TAIL_MAX_LAYERS
         _CONSTANTS_SET.add(device.index)
     return lib
+
+
+@lru_cache(maxsize=8)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda(x: torch.Tensor, what: str) -> None:
@@ -185,6 +236,7 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     _check_cuda(state, "permute")
     out = torch.empty_like(state)
     n = state.numel() // WIDTH
+    record("permute", n)
     err = _lib(state.device).poseidon_gl_permute(
         state.data_ptr(), out.data_ptr(), n, _build.stream_ptr(state.device))
     _build.check(err, "poseidon_gl_permute")
@@ -202,15 +254,24 @@ def hash_leaves(inputs: torch.Tensor,
                          f"{num_outputs}")
     if _on_cpu(inputs, "hash_leaves"):
         return hash_leaves_plain(inputs, num_outputs)
-    from . import _build
-
     inputs = inputs.contiguous()
     _check_cuda(inputs, "hash_leaves")
+    record("leaf_sponge", *inputs.shape, num_outputs)
+    return _sponge(inputs, num_outputs,
+                   group_for(inputs.shape[0], _sms(inputs.device)))
+
+
+def _sponge(inputs: torch.Tensor, num_outputs: int,
+            group: int) -> torch.Tensor:
+    """One sponge launch on the card, ``group`` threads per leaf."""
+    from . import _build
+
     n, length = inputs.shape
     out = torch.empty((n, num_outputs), dtype=torch.int64,
                       device=inputs.device)
     err = _lib(inputs.device).poseidon_gl_leaf_sponge(
-        inputs.data_ptr(), out.data_ptr(), n, length, num_outputs,
+        inputs.data_ptr(), out.data_ptr(), n, length, num_outputs, group,
+        block_for(n * SPAN[group], _sms(inputs.device)),
         _build.stream_ptr(inputs.device))
     _build.check(err, "poseidon_gl_leaf_sponge")
     launches["leaf_sponge"] += 1
@@ -218,8 +279,8 @@ def hash_leaves(inputs: torch.Tensor,
 
 
 def merkle_levels(d0: torch.Tensor, num_layers: int) -> List[torch.Tensor]:
-    """Digest levels above d0 (n, 4), as ``merkle_levels_plain``.  Levels
-    wider than TAIL_W digests are one launch each; the rest one launch."""
+    """Digest levels above d0 (n, 4), as ``merkle_levels_plain``, launched
+    as ``merkle_plan`` says."""
     n = d0.shape[0]
     if d0.ndim != 2 or d0.shape[1] != NUM_HASH_OUT or \
             n & (n - 1) or n < (1 << num_layers):
@@ -227,34 +288,37 @@ def merkle_levels(d0: torch.Tensor, num_layers: int) -> List[torch.Tensor]:
                          f"k >= {num_layers}, got {tuple(d0.shape)}")
     if _on_cpu(d0, "merkle_levels"):
         return merkle_levels_plain(d0, num_layers)
-    from . import _build
-
     d0 = d0.contiguous()
     _check_cuda(d0, "merkle_levels")
+    record("merkle_levels", n, num_layers)
+    return _levels(d0, merkle_plan(n, num_layers, _sms(d0.device)))
+
+
+def _levels(d0: torch.Tensor, plan: List[tuple]) -> List[torch.Tensor]:
+    """The launches of ``plan`` (as ``merkle_plan`` gives) on the card."""
+    from . import _build
+
     lib = _lib(d0.device)
     stream = _build.stream_ptr(d0.device)
     levels = []
     cur = d0
-    layers_left = num_layers
-    while layers_left > 0 and cur.shape[0] > TAIL_W:
-        parents = cur.shape[0] // 2
-        out = torch.empty((parents, NUM_HASH_OUT), dtype=torch.int64,
-                          device=d0.device)
-        err = lib.poseidon_gl_merkle_level(cur.data_ptr(), out.data_ptr(),
-                                           parents, stream)
-        _build.check(err, "poseidon_gl_merkle_level")
+    for step in plan:
+        if step[0] == "level":
+            _, parents, g, threads = step
+            out = torch.empty((parents, NUM_HASH_OUT), dtype=torch.int64,
+                              device=d0.device)
+            err = lib.poseidon_gl_merkle_level(
+                cur.data_ptr(), out.data_ptr(), parents, g, threads, stream)
+            levels.append(out)
+            cur = out
+        else:
+            _, width, layers, _, _ = step
+            sizes = [width >> (k + 1) for k in range(layers)]
+            out = torch.empty((sum(sizes), NUM_HASH_OUT), dtype=torch.int64,
+                              device=d0.device)
+            err = lib.poseidon_gl_merkle_tail(cur.data_ptr(), out.data_ptr(),
+                                              width, layers, stream)
+            levels.extend(torch.split(out, sizes, dim=0))
+        _build.check(err, f"poseidon_gl_merkle_{step[0]}")
         launches["merkle_levels"] += 1
-        levels.append(out)
-        cur = out
-        layers_left -= 1
-    if layers_left > 0:
-        width = cur.shape[0]
-        sizes = [width >> (k + 1) for k in range(layers_left)]
-        out = torch.empty((sum(sizes), NUM_HASH_OUT), dtype=torch.int64,
-                          device=d0.device)
-        err = lib.poseidon_gl_merkle_tail(cur.data_ptr(), out.data_ptr(),
-                                          width, layers_left, stream)
-        _build.check(err, "poseidon_gl_merkle_tail")
-        launches["merkle_levels"] += 1
-        levels.extend(torch.split(out, sizes, dim=0))
     return levels

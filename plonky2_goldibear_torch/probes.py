@@ -2,7 +2,7 @@
 operation, from a long dependent chain of it (``ops/probes.py``).
 
     python -m plonky2_goldibear_torch.probes [section ...] [--device cpu]
-    python -m plonky2_goldibear_torch.probes sass
+    python -m plonky2_goldibear_torch.probes sass [--sass-lib PATH ...]
 
 Sections, named after the TPU probe scripts' own, and the script function
 each one replaces:
@@ -40,7 +40,10 @@ share of the elements resident at once (SMs x 2048 threads).
 ``sass`` disassembles the built ``probes`` and ``poseidon_gl`` libraries
 (``cuobjdump -sass``) and prints, per chain, the instructions of one step
 in the main loop (its body over the steps it holds), and per Poseidon
-kernel its instruction count.
+kernel its instruction count and one thread's instructions through the
+rounds of a permutation, split by opcode (``per_permutation``), for this
+tree's build and any library given with ``--sass-lib`` (another tree's
+build).
 
 Runs on the card unless ``--device cpu`` is given (plain torch versions,
 host clock, cut sizes: a rehearsal, not a device measurement); without a
@@ -87,6 +90,11 @@ SECTIONS = {
 }
 MATMULS = {"s8": "scripts/hwprobe3.py:141 probe_mxu_s8",
            "bf16": "scripts/hwprobe3.py:163 probe_mxu_bf16"}
+# the leaf sponges of a GL 2^12 prove (wires, Z and partial products,
+# quotient, the two FRI layers), Merkle levels of 2^14 ... 2^4 parents
+GROUP_SHAPES = {"sponge": ((1 << 15, 135), (1 << 15, 20), (1 << 15, 16),
+                           (1 << 11, 32), (1 << 7, 32)),
+                "levels": range(14, 3, -1), "tail_cap": 16}
 MIN_LAUNCH_S = 2e-3        # r doubles until one launch takes this long
 MAX_REPS = 1 << 24
 TRIALS = 5
@@ -189,6 +197,56 @@ def run_section(section: str, device=None) -> Dict:
     return rec
 
 
+def run_groups(dev: torch.device) -> Dict:
+    """Section ``poseidon_groups`` (card only): device ms per launch of the
+    Poseidon-GL sponge and Merkle kernels at each group size (threads per
+    state): the leaf sponge at each shape of GROUP_SHAPES["sponge"], one
+    Merkle level of 2^k parents for each k of GROUP_SHAPES["levels"], and
+    the tail from a cap of 16 for 1 to TAIL_MAX_LAYERS layers.  The data the wrappers' geometry rules
+    (ops/poseidon_gl.py) are chosen from."""
+    from .ops import poseidon_gl as P
+
+    if dev.type != "cuda":
+        raise ValueError("poseidon_groups times the kernels' launch "
+                         "geometry: it needs the card")
+
+    def ms(fn):
+        """Device ms per call of fn: 10 calls replayed as one CUDA graph
+        (the wrapper's host time left out), median of TRIALS."""
+        fn()                       # build, load the constants
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(10):
+                fn()
+        return statistics.median(seconds(graph.replay, dev)
+                                 for _ in range(TRIALS)) * 100
+
+    rng = np.random.default_rng(0)
+    rand = lambda *shape: gl.from_ints(                 # noqa: E731
+        rng.integers(0, gl.P, size=shape, dtype=np.uint64), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec = {"section": "poseidon_groups", "device": dev.type,
+           "card": card_name(dev), "sponge": {}, "levels": {}, "tail": {}}
+    for n, length in GROUP_SHAPES["sponge"]:
+        leaves = rand(n, length)
+        rec["sponge"][f"{n}x{length}"] = {
+            g: ms(lambda: P._sponge(leaves, 4, g)) for g in P.GROUPS}
+    for k in GROUP_SHAPES["levels"]:
+        parents = 1 << k
+        d = rand(2 * parents, 4)
+        rec["levels"][parents] = {
+            g: ms(lambda: P._levels(d, [
+                ("level", parents, g, P.block_for(parents * P.SPAN[g], sms))]))
+            for g in P.GROUPS}
+    cap = GROUP_SHAPES["tail_cap"]
+    for layers in range(1, P.TAIL_MAX_LAYERS + 1):
+        d = rand(cap << layers, 4)
+        rec["tail"][layers] = ms(lambda: P._levels(d, [
+            ("tail", cap << layers, layers, cap, 16 << (layers - 1))]))
+    return rec
+
+
 def run_matmul(section: str, dev: torch.device) -> Dict:
     """One (m, k) x (k, n) product of the script's shapes, median of 5."""
     m, k, n = (1024, 1024, 2048) if dev.type == "cuda" else (128, 128, 256)
@@ -267,18 +325,68 @@ def _cuobjdump(path: str) -> str:
                           text=True, check=True, timeout=300).stdout
 
 
-def sass_counts(dump_dir: str = None) -> Dict:
+_SPLIT = ("IMAD.WIDE", "IMAD", "IADD3", "ISETP", "SEL", "LOP3", "SHF",
+          "SHFL")
+ROUND_TRIPS = (4, 22, 4)     # full, partial, full rounds
+
+
+def _split(insn: str) -> str:
+    """The Poseidon report's opcode class: IMAD.WIDE apart from IMAD, the
+    rest by opcode, everything else as "other"."""
+    words = insn.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    op = words[0] if words else ""
+    if op.startswith("IMAD.WIDE"):
+        return "IMAD.WIDE"
+    op = op.split(".")[0]
+    return op if op in _SPLIT else "other"
+
+
+def per_permutation(code: List) -> Dict:
+    """One thread's instructions through the rounds of a Poseidon-GL kernel,
+    from its SASS: the three innermost loops of 100 or more instructions,
+    in address order, are the round loops (4 full, 22 partial, 4 full
+    rounds), each counted times its trips, and every other instruction
+    outside them once (loads, stores, set-up).  None where the kernel has
+    not that shape."""
+    inner = [b for b in loops(code) if len(b) >= 100 and not any(
+        o is not b and len(o) < len(b) and o[0][0] >= b[0][0]
+        and o[-1][0] <= b[-1][0] for o in loops(code))]
+    if len(inner) != 3:
+        return None
+    inner.sort(key=lambda b: b[0][0])
+    in_loop = {a for b in inner for a, _ in b}
+    split = {k: 0 for k in _SPLIT + ("other",)}
+    for _, insn in code:
+        split[_split(insn)] += 1
+    total = len(code)
+    for body, trips in zip(inner, ROUND_TRIPS):
+        total += (trips - 1) * len(body)
+        for _, insn in body:
+            split[_split(insn)] += trips - 1
+    return {"instructions": total, "round_loops": [len(b) for b in inner],
+            "straight": len(code) - len(in_loop), "split": split}
+
+
+def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
     """Instruction counts of the chain steps and the Poseidon-GL kernels
-    from the built libraries' SASS; the listings go to dump_dir if given."""
+    from the built libraries' SASS; the listings go to dump_dir if given.
+    ``libs`` adds other built Poseidon-GL libraries (another tree's)."""
     from .ops import _build
 
     _build.build_all(("probes", "poseidon_gl"))
-    out = {"chains": {}, "poseidon_gl": {}}
-    for name in ("probes", "poseidon_gl"):
-        text = _cuobjdump(_build._lib_path(name))
+    paths = {"probes": _build._lib_path("probes"),
+             "poseidon_gl": _build._lib_path("poseidon_gl")}
+    for path in libs or ():
+        paths[path] = path
+    out = {"chains": {}}
+    for name, path in paths.items():
+        text = _cuobjdump(path)
         if dump_dir:
             os.makedirs(dump_dir, exist_ok=True)
-            with open(os.path.join(dump_dir, name + ".sass"), "w") as f:
+            with open(os.path.join(dump_dir, os.path.basename(name)
+                                   + ".sass"), "w") as f:
                 f.write(text)
         for func, code in parse_sass(text).items():
             if name == "probes":
@@ -292,9 +400,10 @@ def sass_counts(dump_dir: str = None) -> Dict:
                     "per_step": len(body) / K.unroll(step),
                     "opcodes": _histogram(body)}
             else:
-                out["poseidon_gl"][func] = {
+                out.setdefault(name, {})[func] = {
                     "instructions": len(code),
                     "loops": [len(b) for b in loops(code)],
+                    "per_permutation": per_permutation(code),
                     "opcodes": _histogram(code)}
     return out
 
@@ -304,21 +413,28 @@ def main(argv=None) -> int:
         prog="python -m plonky2_goldibear_torch.probes",
         description="Rates of one field or integer operation on the card.")
     ap.add_argument("sections", nargs="*",
-                    help=f"of {list(SECTIONS) + list(MATMULS) + ['sass']} "
+                    help=f"of {list(SECTIONS) + list(MATMULS)} "
+                         "sass poseidon_groups "
                          "(default: every chain section)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain torch, cut sizes)")
     ap.add_argument("--sass-dir", default=None,
                     help="with sass: write the listings here")
+    ap.add_argument("--sass-lib", action="append", default=[],
+                    help="with sass: also count this built Poseidon-GL "
+                         "library (repeatable)")
     args = ap.parse_args(argv)
     names = args.sections or list(SECTIONS)
     for name in names:
-        if name not in SECTIONS and name not in MATMULS and name != "sass":
+        if name not in SECTIONS and name not in MATMULS and \
+                name not in ("sass", "poseidon_groups"):
             ap.error(f"unknown section {name!r}")
     dev = resolve(args.device)
     for name in names:
         if name == "sass":
-            rec = sass_counts(args.sass_dir)
+            rec = sass_counts(args.sass_dir, args.sass_lib)
+        elif name == "poseidon_groups":
+            rec = run_groups(dev)
         else:
             rec = run_section(name, dev)
         print(json.dumps(rec), flush=True)

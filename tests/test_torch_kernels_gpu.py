@@ -65,6 +65,59 @@ def test_merkle_levels_kernel(cuda, n, layers):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
+@pytest.mark.parametrize("n,layers", [(1 << 15, 15), (1 << 11, 7), (1 << 7, 3),
+                                      (1 << 6, 2)])
+def test_merkle_levels_plans(cuda, n, layers):
+    """One subtree to the root, the FRI trees to a cap of 16, a tree that is
+    all tail."""
+    d = _rand(cuda, n, 4, seed=n + layers)
+    got, ref = K.merkle_levels(d, layers), K.merkle_levels_plain(d, layers)
+    assert len(got) == len(ref) == layers
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("group", K.GROUPS)
+@pytest.mark.parametrize("parents", [1, 5, 300])
+def test_merkle_level_each_group(cuda, group, parents):
+    """One level launch of any width (the wrapper takes 2^k digests only),
+    at each group size."""
+    from plonky2_goldibear_torch.ops import _build
+
+    d = _rand(cuda, 2 * parents, 4, seed=parents)
+    out = torch.empty((parents, 4), dtype=torch.int64, device=cuda)
+    err = K._lib(cuda).poseidon_gl_merkle_level(
+        d.data_ptr(), out.data_ptr(), parents, group,
+        K.block_for(parents * K.SPAN[group], 132), _build.stream_ptr(cuda))
+    _build.check(err, "poseidon_gl_merkle_level")
+    assert torch.equal(out, K._two_to_one_level_plain(d))
+
+
+@pytest.mark.parametrize("layers", range(1, K.TAIL_MAX_LAYERS + 1))
+@pytest.mark.parametrize("cap", [1, 16])
+def test_merkle_tail_each_depth(cuda, layers, cap):
+    width = cap << layers
+    d = _rand(cuda, width, 4, seed=width)
+    got = K._levels(d, [("tail", width, layers, cap, 16 << (layers - 1))])
+    ref = K.merkle_levels_plain(d, layers)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("length", [1, 7, 8, 9, 16, 20, 32, 135])
+def test_leaf_sponge_lengths(cuda, length):
+    n = 1000 + length                   # not a multiple of any block
+    s = _rand(cuda, n, length, seed=length)
+    assert torch.equal(K.hash_leaves(s), K.hash_leaves_plain(s))
+
+
+@pytest.mark.parametrize("group", K.GROUPS)
+@pytest.mark.parametrize("n,length,num_out", [(77, 9, 4), (300, 135, 4),
+                                              (33, 16, 12)])
+def test_leaf_sponge_each_group(cuda, group, n, length, num_out):
+    s = _rand(cuda, n, length, seed=n)
+    assert torch.equal(K._sponge(s, num_out, group),
+                       K.hash_leaves_plain(s, num_out))
+
+
 # -- BabyBear (Montgomery-form int32 tensors) --------------------------------
 
 
