@@ -11,9 +11,11 @@
    Poseidon2 permutation, leaf sponge, Merkle levels), with CUDA-event
    times; then every one of these kernels again at each shape that one
    2^12 prove of its field launches it on (recorded from a prove through
-   ``ops.calls``), and Goldilocks Merkle trees of 2^11 and 2^7 digests to
-   a cap of 16 and of 2^15 to the root, with each GL tree's launch plan
-   printed;
+   ``ops.calls``), Goldilocks Merkle trees of 2^11 and 2^7 digests to
+   a cap of 16 and trees of 2^15 to the root of both fields, and the
+   BabyBear NTT at the single rows the prover sent before it batched them
+   (1 x 2^15, 1 x 2^12), with each tree's Merkle plan and each BabyBear
+   NTT call's launch plan printed;
 4. for each field (Goldilocks under standard_recursion_config_gl, then
    BabyBear under standard_recursion_config_bb), loads the committed
    arithmetic-chain fixtures (circuit and witness as data) through
@@ -78,9 +80,13 @@ SMALL_BITS = 6                # a second fixture: small trees, mostly tail
 # Merkle trees checked besides the prove's: FRI layers to a cap of 16 and
 # a tree to its root (one subtree for the tail)
 EXTRA_TREES = ((1 << 11, 7), (1 << 7, 3), (1 << 15, 15))
+EXTRA_BB_CALLS = (("p2_merkle_levels", 1 << 15, 15),
+                  ("ntt_bb", 1, 1 << 15, 0), ("ntt_bb", 1, 1 << 12, 0))
 GL_PERM_MULS = 8 * 12 * 4 + 22 * 4            # field muls per permutation
 GL_PERM_SBOXES = 8 * 12 + 22                  # S-boxes per permutation
-BB_PERM_MULS = 8 * 16 * 4 + 13 * (4 + 16 + 15)
+# BB: the full rounds' S-boxes, then per partial round lane 0's S-box, the
+# scaled sum and difference, and each other lane times its scaled diagonal
+BB_PERM_MULS = 8 * 16 * 4 + 13 * (4 + 2 + 15)
 # probe step -> (the operations of one rep its bound counts, their per-SM-
 # clock rate, one PyTorch call computing the same chain from x0 and reps, or
 # None).  A GL multiply counts its four 32-bit products, as the data-sheet
@@ -413,6 +419,10 @@ def main() -> int:
         if counter in ("ntt", "ntt_bb"):
             b, n, r = shape
             K = K_ntt if is_gl else K_nttb
+            if not is_gl:
+                print(f"ntt_bb plan {b} x 2^{n.bit_length() - 1} r {r}: "
+                      + json.dumps(K.plan(b, n.bit_length() - 1, sms, r)
+                                   ._asdict()))
             x = make(b, n)
             x[:, n >> r:] = 0
             check(key, name, lambda: K.fft(x, r), lambda: K.fft_plain(x, r),
@@ -441,9 +451,9 @@ def main() -> int:
             nbytes = (n + perms) * K.NUM_HASH_OUT * es
             kernel, plain = (lambda: K.merkle_levels(d0, layers),
                              lambda: K.merkle_levels_plain(d0, layers))
-            if is_gl:
-                print(f"merkle plan 2^{n.bit_length() - 1} x {layers} "
-                      "layers: " + json.dumps(K.merkle_plan(n, layers, sms)))
+            print(f"{'' if is_gl else 'p2_'}merkle plan 2^{n.bit_length() - 1}"
+                  f" x {layers} layers: "
+                  + json.dumps(K.merkle_plan(n, layers, sms)))
         check(key, name, kernel, plain, 10,
               nbytes, perms * perm_muls,
               sboxes=perms * GL_PERM_SBOXES if is_gl else None)
@@ -460,6 +470,7 @@ def main() -> int:
         report["prove_calls"] = prove_calls
         shapes = {tuple(c) for calls in prove_calls.values() for c in calls}
         shapes |= {("merkle_levels", n, layers) for n, layers in EXTRA_TREES}
+        shapes |= set(EXTRA_BB_CALLS)
         for call in sorted(shapes):
             prove_shape_check(call)
             report["checks"][_shape_key(call)]["call"] = list(call)

@@ -11,20 +11,42 @@
 //   permute_cols (a batch)          -> poseidon2_bb_permute
 //   permute_cols per absorb         -> poseidon2_bb_leaf_sponge
 //   permute_cols per level (two_to_one over the level)
-//                                   -> poseidon2_bb_merkle_level / _tail
+//                                   -> poseidon2_bb_merkle_level / _subtree
 //
-// Bound on the H100: integer multiplies.  One permutation is 8 * 16 * 4
-// S-box products + 13 * (4 + 16 + 15) partial-round products = 967
-// Montgomery products (each a 32x32 -> 64 multiply and two 32-bit ones)
-// against 64 bytes in and out.  Design: one thread per state, the 16 lanes
-// in registers for the whole permutation (and, in the sponge, across all
-// ceil(L / 8) absorbs of a leaf), the round constants in __constant__
-// memory (every thread reads the same word: a broadcast).  The external
-// layer is adds only; the internal layer is the reference's: scale every
-// lane, head = sum(lanes 1..15) - lane 0, lane i = sum(all) + lane i *
-// 2^shift_(i-1).  Merkle levels wider than TAIL_W digests run one launch
-// per level; all narrower levels run in one block, level after level in
-// shared memory.
+// Bound on the H100: integer multiplies.  A permutation is 8 * 16 * 4
+// S-box products and 13 * (4 + 2 + 15) partial-round products, 785
+// Montgomery products (each a 32x32 -> 64 multiply and two 32-bit ones),
+// against 64 bytes in and out; a narrow Merkle level, though, is one
+// permutation's latency.  Design:
+//   * The internal layer scales the lanes' sum, not each lane: head =
+//     SCALE (sum(lanes 1..15) - lane 0), lane i = SCALE sum(all) + lane i
+//     (SCALE 2^shift_(i-1)), the products of the constants precomputed
+//     (SCALED_DIAG): two products and one a lane where the reference
+//     takes two a lane.  The external layer is adds only.
+//   * A state is held by a group of G threads, each with 16 / G
+//     consecutive lanes in registers: G = 1 for the permutation, the
+//     sponge and the widest levels, G = 4 (one M4 block a thread) for the
+//     other levels that fill the card, G = 16 in the subtrees.  For G > 1
+//     the external layer's sums across M4 blocks (and, at G = 16, the M4
+//     itself) are warp shuffles inside the group; every thread of a group
+//     runs lane 0's S-box of a partial round itself.  At G = 4 the
+//     internal layer's sum is one shuffle reduction a round; at G = 16
+//     the 13 partial rounds take one reduction in all
+//     (partial_rounds_fast).  A group keeps its round constants in
+//     registers, loaded once before the first round.  The wrapper picks
+//     G and the block size per level (ops/poseidon2_bb.py:group_for,
+//     merkle_plan).
+//   * Wide Merkle levels run one launch per level.  The levels too narrow
+//     to fill the card at G = 4 run as independent subtrees of up to
+//     SUBTREE_MAX_LAYERS levels, one block each, folded in shared memory
+//     with 16 threads per parent; the last such launch (the tail) has one
+//     block per node of the cap.
+//   * The permutation and the leaf sponge keep one thread per state (16
+//     lanes in registers for the whole permutation and, in the sponge,
+//     across all absorbs of a leaf), the round constants in __constant__
+//     memory (every thread reads the same word: a broadcast).  Groups read
+//     their per-lane constants from a global copy through L1 (the constant
+//     cache serialises a warp's distinct addresses).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -38,14 +60,22 @@ constexpr int HALF_FULL = 4;
 constexpr int N_FULL = 8;
 constexpr int N_PARTIAL = 13;
 constexpr int DIGEST = 8;
-constexpr int TAIL_W = 512;        // widest level the tail kernel takes
 constexpr int THREADS = 128;
-constexpr int TAIL_THREADS = 256;
+constexpr int SUBTREE_MAX_LAYERS = 5;   // 16 parents at a subtree's first level
+constexpr int SUBTREE_G = 16;           // threads per parent in a subtree
 
 __constant__ uint32_t EXT_RC[N_FULL * WIDTH];
 __constant__ uint32_t INT_RC[N_PARTIAL];
 __constant__ uint32_t SCALE;
-__constant__ uint32_t DIAG[WIDTH - 1];   // 2^shift_i, Montgomery form
+__constant__ uint32_t SCALED_DIAG[WIDTH];      // lane 0 unused
+__device__ uint32_t EXT_RC_LANES[N_FULL * WIDTH];   // the same, for groups
+__device__ uint32_t INT_RC_LANES[N_PARTIAL];
+__device__ uint32_t SCALE_LANES[1];
+__device__ uint32_t SCALED_DIAG_LANES[WIDTH];
+// d_i^k for lane i (d_i = SCALE 2^shift_(i-1)), k = 0 .. 13, and
+// S_j = sum_(i >= 1) d_i^j, j < 13: the partial rounds of a subtree's group
+__device__ uint32_t DIAG_POW_LANES[WIDTH * (N_PARTIAL + 1)];
+__constant__ uint32_t DIAG_POW_SUMS[N_PARTIAL];
 
 __device__ __forceinline__ uint32_t sbox(uint32_t x) {
   const uint32_t x2 = bb::mul(x, x);
@@ -54,63 +84,231 @@ __device__ __forceinline__ uint32_t sbox(uint32_t x) {
   return bb::mul(x3, x4);
 }
 
-// y = M4 x with M4 = [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]]
-// (reference apply_mat4, gates/poseidon2_babybear.rs:903-918).
+__device__ __forceinline__ uint32_t twice(uint32_t x) { return bb::add(x, x); }
+
+// G threads hold one state; thread q of the group holds lanes q L .. q L +
+// L - 1 (L = 16 / G).  Groups are aligned in the warp.
+template <int G>
+struct Group {
+  static_assert(G == 1 || G == 4 || G == 16, "the groups the kernels use");
+  static constexpr int L = WIDTH / G;
+};
+
+template <int G>
+__device__ __forceinline__ uint32_t xor_sum(uint32_t v, unsigned mask,
+                                            int first) {
+#pragma unroll
+  for (int d = first; d < G; d <<= 1)
+    v = bb::add(v, __shfl_xor_sync(mask, v, d, G));
+  return v;
+}
+
+// y = M4 x with M4 = [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]]: y_k =
+// sum(x) + x_k + 2 x_(k+1 mod 4) (reference apply_mat4,
+// gates/poseidon2_babybear.rs:903-918).
 __device__ __forceinline__ void mat4(uint32_t* x) {
-  const uint32_t t01 = bb::add(x[0], x[1]);
-  const uint32_t t23 = bb::add(x[2], x[3]);
-  const uint32_t t0123 = bb::add(t01, t23);
-  const uint32_t t01123 = bb::add(t0123, x[1]);
-  const uint32_t t01233 = bb::add(t0123, x[3]);
-  const uint32_t y3 = bb::add(t01233, bb::add(x[0], x[0]));
-  const uint32_t y1 = bb::add(t01123, bb::add(x[2], x[2]));
-  const uint32_t y0 = bb::add(t01123, t01);
-  const uint32_t y2 = bb::add(t01233, t23);
+  const uint32_t t = bb::add(bb::add(x[0], x[1]), bb::add(x[2], x[3]));
+  const uint32_t y0 = bb::add(bb::add(t, x[0]), twice(x[1]));
+  const uint32_t y1 = bb::add(bb::add(t, x[1]), twice(x[2]));
+  const uint32_t y2 = bb::add(bb::add(t, x[2]), twice(x[3]));
+  const uint32_t y3 = bb::add(bb::add(t, x[3]), twice(x[0]));
   x[0] = y0;
   x[1] = y1;
   x[2] = y2;
   x[3] = y3;
 }
 
-__device__ __forceinline__ void external_layer(uint32_t s[WIDTH]) {
+// The external layer: M4 on each block of four lanes, then each lane plus
+// the sum of its congruence class (mod 4) over the four blocks.
+template <int G>
+__device__ __forceinline__ void external_layer(uint32_t s[], int q,
+                                               unsigned mask) {
+  constexpr int L = Group<G>::L;
+  if constexpr (L >= 4) {            // G = 1, 4: whole M4 blocks a thread
 #pragma unroll
-  for (int b = 0; b < WIDTH; b += 4) mat4(s + b);
+    for (int b = 0; b < L; b += 4) mat4(s + b);
+    uint32_t sum[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t sum =
-        bb::add(bb::add(s[k], s[4 + k]), bb::add(s[8 + k], s[12 + k]));
+    for (int k = 0; k < 4; ++k) {
+      sum[k] = s[k];
 #pragma unroll
-    for (int b = 0; b < WIDTH; b += 4) s[b + k] = bb::add(s[b + k], sum);
+      for (int b = 4; b < L; b += 4) sum[k] = bb::add(sum[k], s[b + k]);
+      sum[k] = xor_sum<G>(sum[k], mask, 1);
+    }
+#pragma unroll
+    for (int b = 0; b < L; b += 4)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) s[b + k] = bb::add(s[b + k], sum[k]);
+  } else {                           // G = 16: one lane, its block in q & ~3
+    const uint32_t t = xor_sum<4>(s[0], mask, 1);
+    const uint32_t next =
+        __shfl_sync(mask, s[0], (q & ~3) | ((q + 1) & 3), G);
+    const uint32_t y = bb::add(bb::add(t, s[0]), twice(next));
+    s[0] = bb::add(y, xor_sum<G>(y, mask, 4));
   }
 }
 
-__device__ __forceinline__ void internal_layer(uint32_t s[WIDTH]) {
+// The round constants a thread uses.  One-thread states (G = 1) read them
+// from constant memory as they go (a warp reads one word: a broadcast).
+// Groups load theirs into registers once, before the first round, from
+// global copies (the constant cache serialises a warp's distinct
+// addresses, and a narrow Merkle level would wait on a miss every round).
+template <int G>
+struct Consts {
+  static constexpr int L = Group<G>::L;
+  uint32_t ext[N_FULL][L], in[N_PARTIAL], scale, sd[L], dpow[L][N_PARTIAL + 1];
+  __device__ __forceinline__ explicit Consts(int q) {   // unused ones drop out
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = bb::mul(s[i], SCALE);
-  uint32_t part = s[1];
+    for (int r = 0; r < N_FULL; ++r)
 #pragma unroll
-  for (int i = 2; i < WIDTH; ++i) part = bb::add(part, s[i]);
-  const uint32_t full = bb::add(part, s[0]);
-  s[0] = bb::sub(part, s[0]);
+      for (int j = 0; j < L; ++j) ext[r][j] = __ldg(EXT_RC_LANES + r * WIDTH + q * L + j);
 #pragma unroll
-  for (int i = 1; i < WIDTH; ++i) s[i] = bb::add(full, bb::mul(s[i], DIAG[i - 1]));
-}
-
-__device__ __forceinline__ void full_round(uint32_t s[WIDTH], int r) {
+    for (int r = 0; r < N_PARTIAL; ++r) in[r] = __ldg(INT_RC_LANES + r);
+    scale = __ldg(SCALE_LANES);
 #pragma unroll
-  for (int i = 0; i < WIDTH; ++i) s[i] = sbox(bb::add(s[i], EXT_RC[r * WIDTH + i]));
-  external_layer(s);
-}
-
-__device__ void permute(uint32_t s[WIDTH]) {
-  external_layer(s);
-  for (int r = 0; r < HALF_FULL; ++r) full_round(s, r);
-  for (int r = 0; r < N_PARTIAL; ++r) {
-    s[0] = sbox(bb::add(s[0], INT_RC[r]));
-    internal_layer(s);
+    for (int j = 0; j < L; ++j) sd[j] = __ldg(SCALED_DIAG_LANES + q * L + j);
+#pragma unroll
+    for (int j = 0; j < L; ++j)
+#pragma unroll
+      for (int k = 0; k <= N_PARTIAL; ++k)
+        dpow[j][k] = __ldg(DIAG_POW_LANES + (q * L + j) * (N_PARTIAL + 1) + k);
   }
-  for (int r = HALF_FULL; r < N_FULL; ++r) full_round(s, r);
+  __device__ __forceinline__ uint32_t ext_rc(int r, int j) const { return ext[r][j]; }
+  __device__ __forceinline__ uint32_t int_rc(int r) const { return in[r]; }
+  __device__ __forceinline__ uint32_t scale_() const { return scale; }
+  __device__ __forceinline__ uint32_t diag(int j) const { return sd[j]; }
+};
+
+template <>
+struct Consts<1> {
+  __device__ __forceinline__ explicit Consts(int) {}
+  __device__ __forceinline__ uint32_t ext_rc(int r, int j) const { return EXT_RC[r * WIDTH + j]; }
+  __device__ __forceinline__ uint32_t int_rc(int r) const { return INT_RC[r]; }
+  __device__ __forceinline__ uint32_t scale_() const { return SCALE; }
+  __device__ __forceinline__ uint32_t diag(int j) const { return SCALED_DIAG[j]; }
+};
+
+template <int G>
+__device__ __forceinline__ void full_round(uint32_t s[], int r, int q,
+                                           unsigned mask, const Consts<G>& c) {
+  constexpr int L = Group<G>::L;
+#pragma unroll
+  for (int j = 0; j < L; ++j) s[j] = sbox(bb::add(s[j], c.ext_rc(r, j)));
+  external_layer<G>(s, q, mask);
 }
+
+// Lane 0 += INT_RC[r], x^7 on lane 0, then the internal layer.
+template <int G>
+__device__ __forceinline__ void partial_round(uint32_t s[], int r, int q,
+                                              unsigned mask,
+                                              const Consts<G>& c) {
+  constexpr int L = Group<G>::L;
+  uint32_t x0 = s[0];
+  if constexpr (G > 1) x0 = __shfl_sync(mask, s[0], 0, G);   // lane 0
+  const uint32_t y0 = sbox(bb::add(x0, c.int_rc(r)));
+  uint32_t u = (G == 1 || q == 0) ? 0u : s[0];   // lanes 1..15 of this thread
+#pragma unroll
+  for (int j = 1; j < L; ++j) u = bb::add(u, s[j]);
+  if constexpr (G > 1) u = xor_sum<G>(u, mask, 1);
+  const uint32_t head = bb::mul(bb::sub(u, y0), c.scale_());
+  const uint32_t full = bb::mul(bb::add(u, y0), c.scale_());
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    s[j] = (j == 0 && q == 0) ? head : bb::add(full, bb::mul(s[j], c.diag(j)));
+}
+
+// The 13 partial rounds for a group of 16 threads (a subtree's), with one
+// shuffle reduction in all instead of one a round.  The internal layer leaves
+// lanes 1..15 affine: s_i' = full_t + s_i d_i, full_t = SCALE (u_t + y_t)
+// with u_t the sum of lanes 1..15 and y_t lane 0's S-box; so u_t = P_t +
+// sum_(j < t) full_(t-1-j) S_j, P_k = sum_(i >= 1) s_i d_i^k of the state
+// before the first partial round.  The group reduces P_0 .. P_12 once;
+// every thread then runs lane 0 and u through the 13 rounds itself (no
+// shuffle), and finally s_i = d_i^13 s_i + sum_t full_t d_i^(12-t).  A
+// round's latency is lane 0's chain (S-box and one product), not a
+// shuffle reduction; the price is about 100 more products a thread.
+template <int G>
+__device__ __forceinline__ void partial_rounds_fast(uint32_t s[], int q,
+                                                    unsigned mask,
+                                                    const Consts<G>& c) {
+  constexpr int L = Group<G>::L;
+  uint32_t p[N_PARTIAL];
+#pragma unroll
+  for (int k = 0; k < N_PARTIAL; ++k) {
+    uint32_t acc = 0;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const uint32_t t = k == 0 ? s[j] : bb::mul(s[j], c.dpow[j][k]);
+      acc = bb::add(acc, (j == 0 && q == 0) ? 0u : t);   // not lane 0
+    }
+    p[k] = acc;
+  }
+#pragma unroll
+  for (int d = 1; d < G; d <<= 1)
+#pragma unroll
+    for (int k = 0; k < N_PARTIAL; ++k)
+      p[k] = bb::add(p[k], __shfl_xor_sync(mask, p[k], d, G));
+  uint32_t x0 = __shfl_sync(mask, s[0], 0, G);   // lane 0
+  uint32_t full[N_PARTIAL];
+#pragma unroll
+  for (int t = 0; t < N_PARTIAL; ++t) {
+    uint32_t u = p[t];
+#pragma unroll
+    for (int j = 0; j < t; ++j) u = bb::add(u, bb::mul(full[t - 1 - j], DIAG_POW_SUMS[j]));
+    const uint32_t y = sbox(bb::add(x0, INT_RC[t]));
+    full[t] = bb::mul(bb::add(u, y), SCALE);
+    x0 = bb::mul(bb::sub(u, y), SCALE);
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    uint32_t v = bb::mul(s[j], c.dpow[j][N_PARTIAL]);
+#pragma unroll
+    for (int t = 0; t < N_PARTIAL; ++t)
+      v = bb::add(v, t == N_PARTIAL - 1 ? full[t]
+                                        : bb::mul(full[t], c.dpow[j][N_PARTIAL - 1 - t]));
+    s[j] = (j == 0 && q == 0) ? x0 : v;
+  }
+}
+
+// The permutation of the state held by this thread's group.  A group's
+// rounds are unrolled (its constants are registers); a one-thread state
+// keeps them as loops.
+template <int G>
+__device__ __forceinline__ void permute(uint32_t s[], int q, unsigned mask,
+                                        const Consts<G>& c) {
+  external_layer<G>(s, q, mask);
+  if constexpr (G == 1) {
+    for (int r = 0; r < HALF_FULL; ++r) full_round<G>(s, r, q, mask, c);
+    for (int r = 0; r < N_PARTIAL; ++r) partial_round<G>(s, r, q, mask, c);
+    for (int r = HALF_FULL; r < N_FULL; ++r) full_round<G>(s, r, q, mask, c);
+  } else {
+#pragma unroll
+    for (int r = 0; r < HALF_FULL; ++r) full_round<G>(s, r, q, mask, c);
+    if constexpr (G == SUBTREE_G) {
+      partial_rounds_fast<G>(s, q, mask, c);
+    } else {
+#pragma unroll
+      for (int r = 0; r < N_PARTIAL; ++r) partial_round<G>(s, r, q, mask, c);
+    }
+#pragma unroll
+    for (int r = HALF_FULL; r < N_FULL; ++r) full_round<G>(s, r, q, mask, c);
+  }
+}
+
+// This thread's group, its index q in the group and the group's shuffle
+// mask.
+template <int G>
+struct Member {
+  int64_t group;
+  int q;
+  unsigned mask;
+  __device__ __forceinline__ explicit Member(int64_t thread) {
+    group = thread / G;
+    q = int(thread % G);
+    const int lane = threadIdx.x % 32;
+    mask = ((G == 32 ? 0u : (1u << G)) - 1) << (lane / G * G);
+  }
+};
 
 __global__ void permute_kernel(const uint32_t* __restrict__ in, uint32_t* out,
                                int64_t n) {
@@ -119,7 +317,7 @@ __global__ void permute_kernel(const uint32_t* __restrict__ in, uint32_t* out,
   uint32_t s[WIDTH];
 #pragma unroll
   for (int t = 0; t < WIDTH; ++t) s[t] = in[i * WIDTH + t];
-  permute(s);
+  permute<1>(s, 0, 0, Consts<1>(0));
 #pragma unroll
   for (int t = 0; t < WIDTH; ++t) out[i * WIDTH + t] = s[t];
 }
@@ -140,54 +338,71 @@ __global__ void leaf_sponge_kernel(const uint32_t* __restrict__ in,
 #pragma unroll
     for (int t = 0; t < RATE; ++t)
       if (t < k) s[t] = row[c + t];
-    permute(s);
+    permute<1>(s, 0, 0, Consts<1>(0));
   }
 #pragma unroll
   for (int t = 0; t < WIDTH; ++t)
     if (t < num_out) out[i * num_out + t] = s[t];
 }
 
-// parent = first 8 lanes of permute(left || right): the pair is 16
-// consecutive words, children 2i and 2i + 1.
-__device__ __forceinline__ void two_to_one(const uint32_t* pair,
-                                           uint32_t* dst) {
-  uint32_t s[WIDTH];
+// dst[0:8] = the first 8 lanes of permute(pair[0:16]) (pair = left ||
+// right, children 2i and 2i + 1), by the calling group.
+template <int G>
+__device__ __forceinline__ void two_to_one(const uint32_t* pair, uint32_t* dst,
+                                           const Member<G>& m,
+                                           const Consts<G>& c) {
+  constexpr int L = Group<G>::L;
+  uint32_t s[L];
 #pragma unroll
-  for (int t = 0; t < WIDTH; ++t) s[t] = pair[t];
-  permute(s);
+  for (int j = 0; j < L; ++j) s[j] = pair[m.q * L + j];
+  permute<G>(s, m.q, m.mask, c);
 #pragma unroll
-  for (int t = 0; t < DIGEST; ++t) dst[t] = s[t];
+  for (int j = 0; j < L; ++j)
+    if (m.q * L + j < DIGEST) dst[m.q * L + j] = s[j];
 }
 
+// digests (2 n_parents, 8) natural order -> parents (n_parents, 8), one
+// parent per group of G threads.
+template <int G>
 __global__ void merkle_level_kernel(const uint32_t* __restrict__ in,
                                     uint32_t* out, int64_t n_parents) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n_parents) return;
-  two_to_one(in + i * 2 * DIGEST, out + i * DIGEST);
+  const Member<G> m(int64_t(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (m.group >= n_parents) return;   // whole groups leave together
+  two_to_one<G>(in + m.group * 2 * DIGEST, out + m.group * DIGEST, m,
+                Consts<G>(m.q));
 }
 
-// One block: digests (width, 8), width <= TAIL_W, through num_layers
-// levels; level k (width >> (k + 1) digests) is written to out in order,
-// levels back to back.
-__global__ void merkle_tail_kernel(const uint32_t* __restrict__ in,
-                                   uint32_t* out, int width, int num_layers) {
-  __shared__ uint32_t buf[2][TAIL_W * DIGEST];
-  for (int e = threadIdx.x; e < width * DIGEST; e += blockDim.x)
-    buf[0][e] = in[e];
+// num_layers levels above digests (width, 8) as width >> num_layers
+// independent subtrees, one block each (SUBTREE_G threads per parent of
+// its first level): the top of a tree (one block per cap node) or a band
+// of narrow levels below it.  Level k (width >> (k + 1) digests) is
+// written to out in natural order, levels back to back; block b writes its
+// slice of each.
+__global__ void merkle_subtree_kernel(const uint32_t* __restrict__ in,
+                                      uint32_t* out, int width,
+                                      int num_layers) {
+  constexpr int G = SUBTREE_G;
+  __shared__ uint32_t buf[2][(1 << SUBTREE_MAX_LAYERS) * DIGEST];
+  const int sub = 1 << num_layers;          // digests of one subtree
+  const int64_t base = int64_t(blockIdx.x) * sub;
+  for (int e = threadIdx.x; e < sub * DIGEST; e += blockDim.x)
+    buf[0][e] = in[base * DIGEST + e];
+  const Member<G> m(threadIdx.x);
+  const Consts<G> c(m.q);
   __syncthreads();
   int cur = 0;
-  int64_t off = 0;
-  for (int layer = 0; layer < num_layers; ++layer) {
-    const int parents = width >> 1;
-    for (int p = threadIdx.x; p < parents; p += blockDim.x) {
-      uint32_t* dst = &buf[cur ^ 1][p * DIGEST];
-      two_to_one(&buf[cur][p * 2 * DIGEST], dst);
-#pragma unroll
-      for (int t = 0; t < DIGEST; ++t) out[off + p * DIGEST + t] = dst[t];
-    }
+  int64_t off = 0;       // the level's first digest in out
+  int w = width;         // the level's input width
+  for (int layer = 0, parents = sub >> 1; layer < num_layers;
+       ++layer, parents >>= 1) {
+    if (m.group < parents)
+      two_to_one<G>(&buf[cur][m.group * 2 * DIGEST],
+                    &buf[cur ^ 1][m.group * DIGEST], m, c);
     __syncthreads();
-    off += int64_t(parents) * DIGEST;
-    width = parents;
+    for (int e = threadIdx.x; e < parents * DIGEST; e += blockDim.x)
+      out[(off + int64_t(blockIdx.x) * parents) * DIGEST + e] = buf[cur ^ 1][e];
+    off += w >> 1;
+    w >>= 1;
     cur ^= 1;
   }
 }
@@ -196,20 +411,44 @@ unsigned blocks_for(int64_t n, int threads) {
   return (unsigned)((n + threads - 1) / threads);
 }
 
-}  // namespace
+bool valid_block(int threads) {
+  return threads > 0 && threads <= 1024 && threads % 32 == 0;
+}
 
-extern "C" int poseidon2_bb_set_constants(const uint32_t* ext_rc,
-                                          const uint32_t* int_rc,
-                                          const uint32_t* scale,
-                                          const uint32_t* diag) {
-  cudaMemcpyToSymbol(EXT_RC, ext_rc, sizeof(uint32_t) * N_FULL * WIDTH);
-  cudaMemcpyToSymbol(INT_RC, int_rc, sizeof(uint32_t) * N_PARTIAL);
-  cudaMemcpyToSymbol(SCALE, scale, sizeof(uint32_t));
-  cudaMemcpyToSymbol(DIAG, diag, sizeof(uint32_t) * (WIDTH - 1));
+template <int G>
+int launch_level(const uint32_t* in, uint32_t* out, long long n_parents,
+                 int threads, cudaStream_t stream) {
+  merkle_level_kernel<G><<<blocks_for(n_parents * G, threads), threads, 0,
+                           stream>>>(in, out, n_parents);
   return (int)cudaGetLastError();
 }
 
-extern "C" int poseidon2_bb_tail_width() { return TAIL_W; }
+}  // namespace
+
+// ext_rc (8 x 16), int_rc (13), scale (1), scaled_diag (16: lane 0 unused,
+// lane i d_i = SCALE 2^shift_(i-1)), diag_pows (16 x 14: d_i^k),
+// diag_pow_sums (13: sum_(i >= 1) d_i^j), all Montgomery forms.
+extern "C" int poseidon2_bb_set_constants(const uint32_t* ext_rc,
+                                          const uint32_t* int_rc,
+                                          const uint32_t* scale,
+                                          const uint32_t* scaled_diag,
+                                          const uint32_t* diag_pows,
+                                          const uint32_t* diag_pow_sums) {
+  cudaMemcpyToSymbol(DIAG_POW_LANES, diag_pows,
+                     sizeof(uint32_t) * WIDTH * (N_PARTIAL + 1));
+  cudaMemcpyToSymbol(DIAG_POW_SUMS, diag_pow_sums, sizeof(uint32_t) * N_PARTIAL);
+  cudaMemcpyToSymbol(EXT_RC, ext_rc, sizeof(uint32_t) * N_FULL * WIDTH);
+  cudaMemcpyToSymbol(EXT_RC_LANES, ext_rc, sizeof(uint32_t) * N_FULL * WIDTH);
+  cudaMemcpyToSymbol(INT_RC, int_rc, sizeof(uint32_t) * N_PARTIAL);
+  cudaMemcpyToSymbol(SCALE, scale, sizeof(uint32_t));
+  cudaMemcpyToSymbol(SCALED_DIAG, scaled_diag, sizeof(uint32_t) * WIDTH);
+  cudaMemcpyToSymbol(SCALED_DIAG_LANES, scaled_diag, sizeof(uint32_t) * WIDTH);
+  cudaMemcpyToSymbol(INT_RC_LANES, int_rc, sizeof(uint32_t) * N_PARTIAL);
+  cudaMemcpyToSymbol(SCALE_LANES, scale, sizeof(uint32_t));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int poseidon2_bb_subtree_max_layers() { return SUBTREE_MAX_LAYERS; }
 
 extern "C" int poseidon2_bb_permute(const uint32_t* in, uint32_t* out,
                                     long long n, void* stream) {
@@ -229,19 +468,29 @@ extern "C" int poseidon2_bb_leaf_sponge(const uint32_t* in, uint32_t* out,
   return (int)cudaGetLastError();
 }
 
+// group: threads per state (1 or 4); threads: per block, a multiple of 32.
 extern "C" int poseidon2_bb_merkle_level(const uint32_t* in, uint32_t* out,
-                                         long long n_parents, void* stream) {
-  if (n_parents > 0)
-    merkle_level_kernel<<<blocks_for(n_parents, THREADS), THREADS, 0,
-                          (cudaStream_t)stream>>>(in, out, n_parents);
-  return (int)cudaGetLastError();
+                                         long long n_parents, int group,
+                                         int threads, void* stream) {
+  if (n_parents <= 0) return 0;
+  if (!valid_block(threads)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (group) {
+    case 1: return launch_level<1>(in, out, n_parents, threads, st);
+    case 4: return launch_level<4>(in, out, n_parents, threads, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int poseidon2_bb_merkle_tail(const uint32_t* in, uint32_t* out,
-                                        int width, int num_layers,
-                                        void* stream) {
-  if (width > TAIL_W) return (int)cudaErrorInvalidValue;
-  merkle_tail_kernel<<<1, TAIL_THREADS, 0, (cudaStream_t)stream>>>(
-      in, out, width, num_layers);
+// width >> num_layers blocks of SUBTREE_G << (num_layers - 1) threads.
+extern "C" int poseidon2_bb_merkle_subtree(const uint32_t* in, uint32_t* out,
+                                           int width, int num_layers,
+                                           void* stream) {
+  if (num_layers < 1 || num_layers > SUBTREE_MAX_LAYERS ||
+      width < (1 << num_layers))
+    return (int)cudaErrorInvalidValue;
+  merkle_subtree_kernel<<<unsigned(width >> num_layers),
+                          SUBTREE_G << (num_layers - 1), 0,
+                          (cudaStream_t)stream>>>(in, out, width, num_layers);
   return (int)cudaGetLastError();
 }

@@ -1,19 +1,22 @@
-"""Device times of one tree's Poseidon-GL leaf sponge and Merkle levels at
-the shapes of a Goldilocks prove, to hold two trees' kernels against each
-other on one card.
+"""Device times of one tree's kernels at the shapes of a prove, to hold
+two trees' kernels against each other on one card: the Poseidon-GL leaf
+sponge and Merkle levels (Goldilocks), the NTT and the Poseidon2 Merkle
+levels (BabyBear).
 
     python plonky2_goldibear_torch/kernel_times.py --root DIR \\
         --report chip_smoke_out/chip_smoke_report.json [--out FILE]
 
 It imports ``plonky2_goldibear_torch`` from DIR, a checkout of any tree
 whose port has ``ops.poseidon_gl.hash_leaves(inputs, num_outputs)`` and
-``merkle_levels(d0, num_layers)`` with their plain versions.  The shapes
-are those that ``chip_smoke.py`` checked the two kernels at, read from its
-report: every sponge and Merkle call of one GL 2^12 prove, and its extra
-trees.  For each shape it prints the ms per call (CUDA events over 10
-calls after a warm-up, median of 5 trials; the wrapper's host time
-included, as in ``chip_smoke.py``) and whether the output equals the
-tree's plain version.  One JSON line; card only.
+``merkle_levels(d0, num_layers)``, ``ops.ntt_bb.fft(x, zero_prefix_log)``
+and ``ops.poseidon2_bb.merkle_levels(d0, num_layers)``, with their plain
+versions.  The shapes are those that ``chip_smoke.py`` checked these
+kernels at, read from its report: every call of one 2^12 prove of the
+kernel's field, and the extra shapes it checks (trees of other caps, the
+BabyBear NTT's single rows).  For each shape it prints the ms per call
+(CUDA events over 10 calls after a warm-up, median of 5 trials; the
+wrapper's host time included, as in ``chip_smoke.py``) and whether the
+output equals the tree's plain version.  One JSON line; card only.
 """
 
 from __future__ import annotations
@@ -25,15 +28,16 @@ import statistics
 import subprocess
 import sys
 
-KINDS = ("leaf_sponge", "merkle_levels")
+KINDS = ("leaf_sponge", "merkle_levels", "ntt_bb", "p2_merkle_levels")
 CALLS_PER_TRIAL = 10
 TRIALS = 5
 P = 0xFFFFFFFF00000001          # the Goldilocks prime
+P_BB = 0x78000001               # the BabyBear prime
 
 
 def shapes_of(report: dict):
-    """The (kind, *shape) of every sponge and Merkle check of the report's
-    prove-shape phase, in the order checked."""
+    """The (kind, *shape) of every check of a kernel of KINDS in the
+    report's prove-shape phase, in the order checked."""
     return [tuple(c["call"]) for c in report["checks"].values()
             if c.get("call") and c["call"][0] in KINDS]
 
@@ -55,6 +59,9 @@ def main(argv=None) -> int:
         return 2
     root = os.path.abspath(args.root)
     sys.path[0:1] = [root]       # not this file's directory
+    from plonky2_goldibear_torch.field import bb
+    from plonky2_goldibear_torch.ops import ntt_bb as NB
+    from plonky2_goldibear_torch.ops import poseidon2_bb as K2
     from plonky2_goldibear_torch.ops import poseidon_gl as K
 
     with open(args.report) as f:
@@ -65,6 +72,10 @@ def main(argv=None) -> int:
     def rand(*shape):
         return torch.from_numpy(rng.integers(0, P, size=shape, dtype=np.uint64)
                                 .view(np.int64)).to(dev)
+
+    def rand_bb(*shape):
+        return bb.from_ints(rng.integers(0, P_BB, size=shape,
+                                         dtype=np.uint64), dev)
 
     def ms(fn):
         fn()
@@ -88,12 +99,19 @@ def main(argv=None) -> int:
             x = rand(n, length)
             fn = lambda: K.hash_leaves(x, num_out)          # noqa: E731
             equal = torch.equal(fn(), K.hash_leaves_plain(x, num_out))
+        elif kind == "ntt_bb":
+            batch, n, r = shape
+            x = rand_bb(batch, n)
+            x[:, n >> r:] = 0
+            fn = lambda: NB.fft(x, r)                       # noqa: E731
+            equal = torch.equal(fn(), NB.fft_plain(x, r))
         else:
             n, layers = shape
-            x = rand(n, 4)
-            fn = lambda: K.merkle_levels(x, layers)         # noqa: E731
+            M = K if kind == "merkle_levels" else K2
+            x = rand(n, 4) if kind == "merkle_levels" else rand_bb(n, 8)
+            fn = lambda: M.merkle_levels(x, layers)         # noqa: E731
             equal = all(torch.equal(a, b) for a, b in zip(
-                fn(), K.merkle_levels_plain(x, layers)))
+                fn(), M.merkle_levels_plain(x, layers)))
         times.append({"call": [kind, *shape], "ms": ms(fn), "equal": equal})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -90,10 +90,17 @@ def lib(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` (a device or its index) as an
+    address (PyTorch's raw stream query where the build has it: the
+    cheaper call)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device if isinstance(device, int) else device.index
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and index is not None:
+        return raw(index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(err: int, what: str) -> None:

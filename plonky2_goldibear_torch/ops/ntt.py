@@ -7,13 +7,14 @@ by device-memory passes, not arithmetic; the kernel keeps a 32 KB tile in
 shared memory and runs every stage the tile spans before writing back, so
 an NTT of length 2^n costs ceil(n / LOG_TILE) passes (see the note in
 ``csrc/ntt.cuh``).  The first pass folds in the bit-reversal and the LDE
-zero-prefix skip.  ``ops/ntt_bb.py`` runs the same schedule for BabyBear.
+zero-prefix skip.
 
 ``fft(x, zero_prefix_log)`` launches the kernel for a CUDA tensor and runs
 ``fft_plain`` for a CPU tensor; there is no other dispatch.
 ``fft_by_passes`` replays the kernel's pass decomposition in plain torch so
 the CPU tests check its index arithmetic.  The plain functions take the
-field module ``F`` (``gl`` or ``bb``).
+field module ``F`` (``gl`` or ``bb``).  ``ops/ntt_bb.py`` runs these passes
+only for rows above 2^15 (its own cluster kernel takes the rest).
 """
 
 from __future__ import annotations
@@ -146,6 +147,19 @@ def fft_by_passes(x: torch.Tensor, zero_prefix_log: int = 0,
 # --------------------------------------------------------------------------
 
 
+@lru_cache(maxsize=None)
+def pass_fn(lib_name: str):
+    """The pass kernel ``<lib_name>_pass`` of ``csrc/<lib_name>.cu``, its C
+    signature set once."""
+    from . import _build
+
+    fn = getattr(_build.lib(lib_name), lib_name + "_pass")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
+        [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return fn
+
+
 def launch_passes(x: torch.Tensor, zero_prefix_log: int, F, lib_name: str,
                   tile_log: int) -> torch.Tensor:
     """Run the passes of ``pass_plan(n_log, tile_log)`` through the kernel
@@ -160,10 +174,7 @@ def launch_passes(x: torch.Tensor, zero_prefix_log: int, F, lib_name: str,
         raise ValueError("fft kernel needs a contiguous tensor")
     out = torch.empty_like(flat)
     tw = twiddles(n_log, str(x.device), F)
-    fn = getattr(_build.lib(lib_name), lib_name + "_pass")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
-        [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = pass_fn(lib_name)
     stream = _build.stream_ptr(x.device)
     plan = pass_plan(n_log, tile_log)
     for p, (s0, s1) in enumerate(plan):

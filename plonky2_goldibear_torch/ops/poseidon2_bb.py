@@ -5,11 +5,16 @@ levels.
 Replaces the TPU kernel ``plonky2_goldibear_tpu/ops/poseidon2_bb.py:
 permute_cols``, which the JAX package reaches once per absorb of the leaf
 sponge, once per Merkle level and once per PoW-grind batch.  On the H100
-the permutation is bound by integer multiplies (about 1000 Montgomery
-products per 64 bytes of state in and out).  Each kernel keeps a state in
-16 registers of one thread for the whole permutation (and, in the sponge,
-across all absorbs of a leaf), with the round constants in constant
-memory.  Layouts follow the JAX package's public functions: states
+the permutation is bound by integer multiplies (785 Montgomery products
+per 64 bytes of state in and out).  The permutation and the sponge keep a
+state in 16 registers of one thread for the whole permutation (and, in
+the sponge, across all absorbs of a leaf), with the round constants in
+constant memory.  The wide Merkle levels hold a state in one thread or a
+group of 4; the narrow ones run as subtrees, one block each, 16 threads
+a parent, the top ones one block per cap node; ``group_for`` and
+``merkle_plan`` pick the launches from the number of states and SMs (see
+the note in the source).
+Layouts follow the JAX package's public functions: states
 (..., 16), leaf rows (n, L), digest levels (w, 8) in natural node order;
 all values are BabyBear Montgomery forms (``field/bb.py``).
 
@@ -27,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import List
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +47,6 @@ NUM_HASH_OUT = 8
 HALF_FULL = C.HALF_N_FULL_ROUNDS
 N_PARTIAL = C.N_PARTIAL_ROUNDS
 N_FULL = C.N_FULL_ROUNDS_TOTAL
-TAIL_W = 512                    # must match csrc/poseidon2_bb.cu
 
 launches = {"p2_permute": 0, "p2_leaf_sponge": 0, "p2_merkle_levels": 0}
 
@@ -156,6 +160,59 @@ def merkle_levels_plain(d0: torch.Tensor, num_layers: int
 
 
 # --------------------------------------------------------------------------
+# launch geometry of the Merkle levels (pure functions of the shapes and
+# the SM count)
+# --------------------------------------------------------------------------
+
+GROUPS = (1, 4)             # threads per state the level kernel is built for
+FILL_PER_SM = 128           # threads per SM below which a level takes a
+                            # larger group (one warp per scheduler)
+SUBTREE_GROUP = 16          # threads per parent in a subtree launch
+SUBTREE_MAX_LAYERS = 5      # levels a subtree launch folds; the source's
+
+
+def group_for(states: int, sms: int) -> int:
+    """Threads per state for a level of ``states`` permutations: the fewest
+    that still give FILL_PER_SM threads to every SM."""
+    for g in GROUPS:
+        if states * g >= FILL_PER_SM * sms:
+            return g
+    return GROUPS[-1]
+
+
+def block_for(threads: int, sms: int) -> int:
+    """Threads per block: 128, fewer (down to one warp) where that spreads
+    the launch over more SMs."""
+    return min(128, max(32, threads // sms // 32 * 32))
+
+
+@lru_cache(maxsize=256)
+def merkle_plan(n: int, num_layers: int, sms: int) -> Tuple[tuple, ...]:
+    """The launches of ``merkle_levels`` for n digests: ("level", parents,
+    group, threads per block) for each level whose largest group still
+    fills the card (FILL_PER_SM threads an SM), then the narrower levels as
+    ("subtree", width, layers, subtrees, threads per block) launches of at
+    most SUBTREE_MAX_LAYERS levels, one block per subtree, the deepest at
+    the top (the tail: one block per node of the cap)."""
+    plan = []
+    width, left = n, num_layers
+    while left > 0 and (width // 2) * GROUPS[-1] >= FILL_PER_SM * sms:
+        parents = width // 2
+        g = group_for(parents, sms)
+        plan.append(("level", parents, g, block_for(parents * g, sms)))
+        width, left = parents, left - 1
+    bands = []
+    while left > 0:
+        bands.append(min(left, SUBTREE_MAX_LAYERS))
+        left -= bands[-1]
+    for k in reversed(bands):
+        plan.append(("subtree", width, k, width >> k,
+                     SUBTREE_GROUP << (k - 1)))
+        width >>= k
+    return tuple(plan)
+
+
+# --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -167,30 +224,57 @@ def _mont_array(vals) -> np.ndarray:
     return ((a * np.uint64(bb.R)) % np.uint64(bb.P)).astype(np.uint32)
 
 
+def scaled_diag() -> np.ndarray:
+    """The kernels' internal-layer diagonal: lane 0 unused (0), lane i the
+    Montgomery form of INTERNAL_SCALE * 2^shift_(i-1)."""
+    return _mont_array([0] + [C.INTERNAL_SCALE * (1 << k) % bb.P
+                              for k in C.INTERNAL_DIAG_SHIFTS])
+
+
+def diag_powers():
+    """The powers d_i^k (k = 0 .. 13) of each lane's diagonal d_i (lane 0
+    zero) and their sums over lanes 1..15, S_j (j < 13), in Montgomery
+    form: the constants of the kernels' partial rounds for groups."""
+    d = [0] + [C.INTERNAL_SCALE * (1 << k) % bb.P
+               for k in C.INTERNAL_DIAG_SHIFTS]
+    pows = [[pow(x, k, bb.P) if i else 0 for k in range(N_PARTIAL + 1)]
+            for i, x in enumerate(d)]
+    sums = [sum(pow(x, j, bb.P) for x in d[1:]) % bb.P
+            for j in range(N_PARTIAL)]
+    return _mont_array(pows), _mont_array(sums)
+
+
 def _lib(device):
+    """The built library, its constants set on card ``device`` (a device
+    or its index) and its C signatures set, once."""
     from . import _build
 
     lib = _build.lib("poseidon2_bb")
-    if device.index not in _CONSTANTS_SET:
+    index = device if isinstance(device, int) else device.index
+    if index not in _CONSTANTS_SET:
         p32 = ctypes.POINTER(ctypes.c_uint32)
-        lib.poseidon2_bb_set_constants.argtypes = [p32] * 4
-        ext = _mont_array(C.EXTERNAL_CONSTANTS)
-        internal = _mont_array(C.INTERNAL_CONSTANTS)
-        scale = _mont_array([C.INTERNAL_SCALE])
-        shifts = _mont_array([1 << k for k in C.INTERNAL_DIAG_SHIFTS])
-        with torch.cuda.device(device):
+        lib.poseidon2_bb_set_constants.argtypes = [p32] * 6
+        tables = (_mont_array(C.EXTERNAL_CONSTANTS),
+                  _mont_array(C.INTERNAL_CONSTANTS),
+                  _mont_array([C.INTERNAL_SCALE]), scaled_diag(),
+                  *diag_powers())
+        with torch.cuda.device(index):
             err = lib.poseidon2_bb_set_constants(
-                ext.ctypes.data_as(p32), internal.ctypes.data_as(p32),
-                scale.ctypes.data_as(p32), shifts.ctypes.data_as(p32))
+                *(t.ctypes.data_as(p32) for t in tables))
         _build.check(err, "poseidon2_bb_set_constants")
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.poseidon2_bb_permute.argtypes = [vp, vp, ll, vp]
         lib.poseidon2_bb_leaf_sponge.argtypes = [vp, vp, ll, i32, i32, vp]
-        lib.poseidon2_bb_merkle_level.argtypes = [vp, vp, ll, vp]
-        lib.poseidon2_bb_merkle_tail.argtypes = [vp, vp, i32, i32, vp]
-        assert lib.poseidon2_bb_tail_width() == TAIL_W
-        _CONSTANTS_SET.add(device.index)
+        lib.poseidon2_bb_merkle_level.argtypes = [vp, vp, ll, i32, i32, vp]
+        lib.poseidon2_bb_merkle_subtree.argtypes = [vp, vp, i32, i32, vp]
+        assert lib.poseidon2_bb_subtree_max_layers() == SUBTREE_MAX_LAYERS
+        _CONSTANTS_SET.add(index)
     return lib
+
+
+@lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_cuda(x: torch.Tensor, what: str) -> None:
@@ -256,8 +340,8 @@ def hash_leaves(inputs: torch.Tensor,
 
 
 def merkle_levels(d0: torch.Tensor, num_layers: int) -> List[torch.Tensor]:
-    """Digest levels above d0 (n, 8), as ``merkle_levels_plain``.  Levels
-    wider than TAIL_W digests are one launch each; the rest one launch."""
+    """Digest levels above d0 (n, 8), as ``merkle_levels_plain``, launched
+    as ``merkle_plan`` says."""
     n = d0.shape[0]
     if d0.ndim != 2 or d0.shape[1] != NUM_HASH_OUT or \
             n & (n - 1) or n < (1 << num_layers):
@@ -265,35 +349,57 @@ def merkle_levels(d0: torch.Tensor, num_layers: int) -> List[torch.Tensor]:
                          f"k >= {num_layers}, got {tuple(d0.shape)}")
     if _on_cpu(d0, "merkle_levels"):
         return merkle_levels_plain(d0, num_layers)
+    if d0.dtype != bb.DTYPE:
+        raise TypeError(f"merkle_levels needs int32 BabyBear tensors, got "
+                        f"{d0.dtype}")
+    d0 = d0.contiguous()
+    record("p2_merkle_levels", n, num_layers)
+    return _levels(d0, merkle_plan(n, num_layers, _sms(d0.get_device())))
+
+
+@lru_cache(maxsize=256)
+def _launches_of(n: int, plan: Tuple[tuple, ...]):
+    """The level widths above n digests that ``plan`` writes, and its
+    launches as (kind, source offset, destination offset, arguments), the
+    offsets in bytes: the first source is d0, every other offset is into
+    one buffer holding all levels, level after level."""
+    row = NUM_HASH_OUT * 4
+    steps, cur, dst = [], None, 0      # cur None: d0 itself
+    widths = []
+    for step in plan:
+        if step[0] == "level":
+            _, parents, g, threads = step
+            steps.append(("level", cur, dst, (parents, g, threads)))
+            widths.append(parents)
+            cur, dst = dst, dst + parents * row
+        else:
+            _, width, k, subtrees, _ = step
+            steps.append(("subtree", cur, dst, (width, k)))
+            widths += [width >> (i + 1) for i in range(k)]
+            dst += (width - subtrees) * row
+            cur = dst - subtrees * row      # the subtrees' roots
+    return widths, tuple(steps)
+
+
+def _levels(d0: torch.Tensor, plan: Sequence[tuple]) -> List[torch.Tensor]:
+    """The launches of ``plan`` (as ``merkle_plan`` gives) on the card, all
+    levels written into one buffer, level after level."""
     from . import _build
 
-    d0 = d0.contiguous()
-    _check_cuda(d0, "merkle_levels")
-    record("p2_merkle_levels", n, num_layers)
-    lib = _lib(d0.device)
-    stream = _build.stream_ptr(d0.device)
-    levels = []
-    cur = d0
-    layers_left = num_layers
-    while layers_left > 0 and cur.shape[0] > TAIL_W:
-        parents = cur.shape[0] // 2
-        out = torch.empty((parents, NUM_HASH_OUT), dtype=bb.DTYPE,
-                          device=d0.device)
-        err = lib.poseidon2_bb_merkle_level(cur.data_ptr(), out.data_ptr(),
-                                            parents, stream)
-        _build.check(err, "poseidon2_bb_merkle_level")
-        launches["p2_merkle_levels"] += 1
-        levels.append(out)
-        cur = out
-        layers_left -= 1
-    if layers_left > 0:
-        width = cur.shape[0]
-        sizes = [width >> (k + 1) for k in range(layers_left)]
-        out = torch.empty((sum(sizes), NUM_HASH_OUT), dtype=bb.DTYPE,
-                          device=d0.device)
-        err = lib.poseidon2_bb_merkle_tail(cur.data_ptr(), out.data_ptr(),
-                                           width, layers_left, stream)
-        _build.check(err, "poseidon2_bb_merkle_tail")
-        launches["p2_merkle_levels"] += 1
-        levels.extend(torch.split(out, sizes, dim=0))
-    return levels
+    index = d0.get_device()
+    lib = _lib(index)
+    stream = _build.stream_ptr(index)
+    widths, steps = _launches_of(d0.shape[0], tuple(map(tuple, plan)))
+    buf = torch.empty((sum(widths), NUM_HASH_OUT), dtype=bb.DTYPE,
+                      device=d0.device)
+    base, src0 = buf.data_ptr(), d0.data_ptr()
+    for kind, cur, dst, args in steps:
+        src = src0 if cur is None else base + cur
+        if kind == "level":
+            err = lib.poseidon2_bb_merkle_level(src, base + dst, *args, stream)
+        else:
+            err = lib.poseidon2_bb_merkle_subtree(src, base + dst, *args,
+                                                  stream)
+        _build.check(err, "poseidon2_bb_merkle_" + kind)
+    launches["p2_merkle_levels"] += len(steps)
+    return list(buf.split(widths))

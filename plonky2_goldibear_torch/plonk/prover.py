@@ -170,13 +170,11 @@ def quotient_chunks(circuit, qd: _QuotientData, cs_lde, wires_lde,
         zs_pp[z0:z1], zs_pp_next[z0:z1], zs_pp[pp0:pp1], cs[s0:s1],
         betas, gammas, alphas)
     n = common.degree
-    qdf = common.quotient_degree_factor
-    chunks = []
-    for v in values:
-        q_values = F.mul(v.expand(qd.m), qd.zh_inv)
-        q_coeffs = fftm.coset_ifft(q_values, common.spec.coset_shift, F)
-        chunks.append(q_coeffs[:common.quotient_degree].reshape(qdf, n))
-    return torch.cat(chunks, dim=0)
+    # the challenges' quotients in one batched coset iFFT
+    q_values = F.mul(torch.stack([v.expand(qd.m) for v in values]),
+                     qd.zh_inv)
+    q_coeffs = fftm.coset_ifft(q_values, common.spec.coset_shift, F)
+    return q_coeffs[:, :common.quotient_degree].reshape(-1, n)
 
 
 def _ext_powers(E, z, n: int):

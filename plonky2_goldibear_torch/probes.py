@@ -3,6 +3,7 @@ operation, from a long dependent chain of it (``ops/probes.py``).
 
     python -m plonky2_goldibear_torch.probes [section ...] [--device cpu]
     python -m plonky2_goldibear_torch.probes sass [--sass-lib PATH ...]
+    python -m plonky2_goldibear_torch.probes poseidon2_groups ntt_bb_clusters
 
 Sections, named after the TPU probe scripts' own, and the script function
 each one replaces:
@@ -44,6 +45,13 @@ kernel its instruction count and one thread's instructions through the
 rounds of a permutation, split by opcode (``per_permutation``), for this
 tree's build and any library given with ``--sass-lib`` (another tree's
 build).
+
+``poseidon_groups``, ``poseidon2_groups`` and ``ntt_bb_clusters`` (card
+only) time the launch geometries the wrappers choose between, as CUDA-
+graph replays (device time without the wrappers' host time): every group
+size per Merkle level width and the tail per depth (Poseidon-GL, Poseidon2-
+BB), and every cluster size of the BabyBear NTT at each NTT shape of a
+BabyBear prove.
 
 Runs on the card unless ``--device cpu`` is given (plain torch versions,
 host clock, cut sizes: a rehearsal, not a device measurement); without a
@@ -95,6 +103,15 @@ MATMULS = {"s8": "scripts/hwprobe3.py:141 probe_mxu_s8",
 GROUP_SHAPES = {"sponge": ((1 << 15, 135), (1 << 15, 20), (1 << 15, 16),
                            (1 << 11, 32), (1 << 7, 32)),
                 "levels": range(14, 3, -1), "tail_cap": 16}
+# the BabyBear trees of a 2^12 prove (2^15, 2^12, 2^9, 2^6 leaves to a cap
+# of 16), and its NTT calls (batch, log2 n, zero prefix) with the single
+# rows the prover sent before it batched them
+BB_TREES = ((1 << 15, 11), (1 << 12, 8), (1 << 9, 5), (1 << 6, 2))
+BB_LEVELS = range(17, 3, -1)       # Merkle levels of 2^17 ... 2^4 parents
+BB_SUBTREES = (16, 256)            # subtrees a subtree launch folds
+BB_NTT_SHAPES = ((167, 12, 0), (167, 15, 3), (36, 12, 0), (36, 15, 3),
+                 (6, 15, 0), (48, 15, 3), (4, 15, 0), (4, 12, 0), (4, 9, 0),
+                 (4, 6, 0), (1, 15, 0), (1, 12, 0))
 MIN_LAUNCH_S = 2e-3        # r doubles until one launch takes this long
 MAX_REPS = 1 << 24
 TRIALS = 5
@@ -197,6 +214,25 @@ def run_section(section: str, device=None) -> Dict:
     return rec
 
 
+def _graph_ms(fn: Callable[[], object], dev: torch.device) -> float:
+    """Device ms per call of fn: 10 calls replayed as one CUDA graph (the
+    wrapper's host time left out), median of TRIALS."""
+    fn()                           # build, load the constants
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(10):
+            fn()
+    return statistics.median(seconds(graph.replay, dev)
+                             for _ in range(TRIALS)) * 100
+
+
+def _needs_card(dev: torch.device, section: str) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{section} times the kernels' launch geometry: "
+                         "it needs the card")
+
+
 def run_groups(dev: torch.device) -> Dict:
     """Section ``poseidon_groups`` (card only): device ms per launch of the
     Poseidon-GL sponge and Merkle kernels at each group size (threads per
@@ -206,21 +242,8 @@ def run_groups(dev: torch.device) -> Dict:
     (ops/poseidon_gl.py) are chosen from."""
     from .ops import poseidon_gl as P
 
-    if dev.type != "cuda":
-        raise ValueError("poseidon_groups times the kernels' launch "
-                         "geometry: it needs the card")
-
-    def ms(fn):
-        """Device ms per call of fn: 10 calls replayed as one CUDA graph
-        (the wrapper's host time left out), median of TRIALS."""
-        fn()                       # build, load the constants
-        torch.cuda.synchronize(dev)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(10):
-                fn()
-        return statistics.median(seconds(graph.replay, dev)
-                                 for _ in range(TRIALS)) * 100
+    _needs_card(dev, "poseidon_groups")
+    ms = lambda fn: _graph_ms(fn, dev)                  # noqa: E731
 
     rng = np.random.default_rng(0)
     rand = lambda *shape: gl.from_ints(                 # noqa: E731
@@ -244,6 +267,75 @@ def run_groups(dev: torch.device) -> Dict:
         d = rand(cap << layers, 4)
         rec["tail"][layers] = ms(lambda: P._levels(d, [
             ("tail", cap << layers, layers, cap, 16 << (layers - 1))]))
+    return rec
+
+
+def run_poseidon2_groups(dev: torch.device) -> Dict:
+    """Section ``poseidon2_groups`` (card only): device ms per launch of the
+    Poseidon2-BB Merkle kernels: one level of 2^k parents at each group
+    size (threads per state) for each k of BB_LEVELS, a subtree launch of 1
+    to SUBTREE_MAX_LAYERS levels folding 16 (the tail to a cap of 16) or
+    256 subtrees, and each tree of BB_TREES as ``merkle_plan`` launches it.
+    The data the geometry rules of ops/poseidon2_bb.py are chosen from."""
+    from .field import bb
+    from .ops import poseidon2_bb as P
+
+    _needs_card(dev, "poseidon2_groups")
+    rng = np.random.default_rng(0)
+    rand = lambda *shape: bb.from_ints(                 # noqa: E731
+        rng.integers(0, bb.P, size=shape, dtype=np.uint64), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec = {"section": "poseidon2_groups", "device": dev.type,
+           "card": card_name(dev), "levels": {}, "subtree": {},
+           "trees": {}}
+    for k in BB_LEVELS:
+        parents = 1 << k
+        d = rand(2 * parents, 8)
+        rec["levels"][parents] = {
+            g: _graph_ms(lambda: P._levels(d, [
+                ("level", parents, g, P.block_for(parents * g, sms))]), dev)
+            for g in P.GROUPS}
+    for subtrees in BB_SUBTREES:
+        rec["subtree"][subtrees] = {}
+        for layers in range(1, P.SUBTREE_MAX_LAYERS + 1):
+            width = subtrees << layers
+            d = rand(width, 8)
+            rec["subtree"][subtrees][layers] = _graph_ms(
+                lambda: P._levels(d, [("subtree", width, layers, subtrees,
+                                       P.SUBTREE_GROUP << (layers - 1))]),
+                dev)
+    for n, layers in BB_TREES:
+        d = rand(n, 8)
+        rec["trees"][f"{n}x{layers}"] = {
+            "plan": P.merkle_plan(n, layers, sms),
+            "ms": _graph_ms(lambda: P.merkle_levels(d, layers), dev)}
+    return rec
+
+
+def run_ntt_bb_clusters(dev: torch.device) -> Dict:
+    """Section ``ntt_bb_clusters`` (card only): device ms of the BabyBear
+    NTT at each shape of BB_NTT_SHAPES for every cluster size the row
+    allows, and the one ``ops/ntt_bb.py:plan`` picks: the data behind
+    the plan."""
+    from .field import bb
+    from .ops import ntt_bb as N
+
+    _needs_card(dev, "ntt_bb_clusters")
+    rng = np.random.default_rng(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec = {"section": "ntt_bb_clusters", "device": dev.type,
+           "card": card_name(dev), "shapes": {}}
+    for batch, n_log, r in BB_NTT_SHAPES:
+        x = rng.integers(0, bb.P, size=(batch, 1 << n_log), dtype=np.uint64)
+        x[:, (1 << n_log) >> r:] = 0
+        x = bb.from_ints(x, dev)
+        rec["shapes"][f"{batch}x2^{n_log}_r{r}"] = {
+            "plan": N.plan(batch, n_log, sms, r).c_log,
+            "active_clusters": {c: N.active_clusters(N.cluster_plan(
+                batch, n_log, c, sms, r)) for c in N.cluster_logs(n_log, r)},
+            "ms": {c: _graph_ms(lambda: N._launch(
+                x, r, N.cluster_plan(batch, n_log, c, sms, r)), dev)
+                for c in N.cluster_logs(n_log, r)}}
     return rec
 
 
@@ -408,13 +500,20 @@ def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
     return out
 
 
+# the card-only sweeps of the kernels' launch geometry
+GEOMETRY = {"poseidon_groups": run_groups,
+            "poseidon2_groups": run_poseidon2_groups,
+            "ntt_bb_clusters": run_ntt_bb_clusters}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m plonky2_goldibear_torch.probes",
         description="Rates of one field or integer operation on the card.")
     ap.add_argument("sections", nargs="*",
                     help=f"of {list(SECTIONS) + list(MATMULS)} "
-                         "sass poseidon_groups "
+                         "sass poseidon_groups poseidon2_groups "
+                         "ntt_bb_clusters "
                          "(default: every chain section)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain torch, cut sizes)")
@@ -427,14 +526,14 @@ def main(argv=None) -> int:
     names = args.sections or list(SECTIONS)
     for name in names:
         if name not in SECTIONS and name not in MATMULS and \
-                name not in ("sass", "poseidon_groups"):
+                name not in ("sass", *GEOMETRY):
             ap.error(f"unknown section {name!r}")
     dev = resolve(args.device)
     for name in names:
         if name == "sass":
             rec = sass_counts(args.sass_dir, args.sass_lib)
-        elif name == "poseidon_groups":
-            rec = run_groups(dev)
+        elif name in GEOMETRY:
+            rec = GEOMETRY[name](dev)
         else:
             rec = run_section(name, dev)
         print(json.dumps(rec), flush=True)

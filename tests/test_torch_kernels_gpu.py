@@ -136,6 +136,39 @@ def test_ntt_bb_kernel(cuda, batch, n_log, r):
     assert torch.equal(ntt_bb.fft(x, r), ntt_bb.fft_plain(x, r))
 
 
+# every cluster size at each NTT shape of a BabyBear 2^12 prove, and the
+# single rows the prover sent before batching
+_BB_NTT_SHAPES = [(167, 12, 0), (167, 15, 3), (36, 12, 0), (36, 15, 3),
+                  (6, 15, 0), (48, 15, 3), (4, 15, 0), (4, 12, 0), (4, 9, 0),
+                  (4, 6, 0), (1, 15, 0), (1, 12, 0)]
+
+
+@pytest.mark.parametrize("batch,n_log,r,c_log", [
+    (b, n, r, c) for b, n, r in _BB_NTT_SHAPES
+    for c in ntt_bb.cluster_logs(n, r)])
+def test_ntt_bb_each_cluster_size(cuda, batch, n_log, r, c_log):
+    x = _rand_bb(cuda, batch, 1 << n_log, seed=n_log + c_log)
+    x[:, (1 << n_log) >> r:] = 0
+    p = ntt_bb.cluster_plan(batch, n_log, c_log, 132, r)
+    got, launched = ntt_bb._launch(x, r, p)
+    assert launched == 1
+    assert torch.equal(got, ntt_bb.fft_plain(x, r))
+
+
+@pytest.mark.parametrize("batch,n_log,r", _BB_NTT_SHAPES + [
+    (2, 16, 0), (1, 17, 3), (3, 5, 2), (2, 2, 0)])
+def test_ntt_bb_plan(cuda, batch, n_log, r):
+    """The launch ``plan`` picks (one cluster launch up to 2^15; the bit-
+    reversal and the passes above)."""
+    x = _rand_bb(cuda, batch, 1 << n_log, seed=batch + n_log)
+    x[:, (1 << n_log) >> r:] = 0
+    ntt_bb.reset_launches()
+    got = ntt_bb.fft(x, r)
+    assert ntt_bb.launches == (1 if n_log <= ntt_bb.CLUSTER_MAX_LOG else
+                               1 + len(ntt.pass_plan(n_log, 13)))
+    assert torch.equal(got, ntt_bb.fft_plain(x, r))
+
+
 @pytest.mark.parametrize("n", [1, 7, 1000, 1 << 17])
 def test_poseidon2_bb_permute_kernel(cuda, n):
     s = _rand_bb(cuda, n, 16, seed=n)
@@ -154,6 +187,41 @@ def test_poseidon2_bb_merkle_levels_kernel(cuda, n, layers):
     d = _rand_bb(cuda, n, 8, seed=n)
     got, ref = K2.merkle_levels(d, layers), K2.merkle_levels_plain(d, layers)
     assert len(got) == len(ref) == layers
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("n,layers", [(1 << 15, 15), (1 << 12, 8),
+                                      (1 << 9, 5), (1 << 6, 2), (1 << 17, 12)])
+def test_poseidon2_bb_merkle_levels_plans(cuda, n, layers):
+    """One subtree to the root, the FRI trees of a BB prove to a cap of
+    16."""
+    d = _rand_bb(cuda, n, 8, seed=n + layers)
+    got, ref = K2.merkle_levels(d, layers), K2.merkle_levels_plain(d, layers)
+    assert len(got) == len(ref) == layers
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("group", K2.GROUPS)
+@pytest.mark.parametrize("parents", [1, 5, 300, 4096])
+def test_poseidon2_bb_merkle_level_each_group(cuda, group, parents):
+    """One level launch of any width at each group size."""
+    d = _rand_bb(cuda, 2 * parents, 8, seed=parents)
+    got = K2._levels(d, [("level", parents, group,
+                          K2.block_for(parents * group, 132))])
+    assert torch.equal(got[0], K2.merkle_levels_plain(d, 1)[0])
+
+
+@pytest.mark.parametrize("layers", range(1, K2.SUBTREE_MAX_LAYERS + 1))
+@pytest.mark.parametrize("subtrees", [1, 16, 256])
+def test_poseidon2_bb_merkle_subtree_each_depth(cuda, layers, subtrees):
+    """One subtree launch: a tree's top (one block per cap node) or a band
+    of narrow levels below it (256 subtrees)."""
+    width = subtrees << layers
+    d = _rand_bb(cuda, width, 8, seed=width + layers)
+    got = K2._levels(d, [("subtree", width, layers, subtrees,
+                          K2.SUBTREE_GROUP << (layers - 1))])
+    ref = K2.merkle_levels_plain(d, layers)
+    assert len(got) == layers
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
