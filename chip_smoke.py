@@ -12,15 +12,21 @@
    times; then every one of these kernels again at each shape that one
    2^12 prove of its field launches it on (recorded from a prove through
    ``ops.calls``), Goldilocks Merkle trees of 2^11 and 2^7 digests to
-   a cap of 16 and trees of 2^15 to the root of both fields, and the
+   a cap of 16 and trees of 2^15 to the root of both fields, the
    BabyBear NTT at the single rows the prover sent before it batched them
-   (1 x 2^15, 1 x 2^12), with each tree's Merkle plan and each BabyBear
-   NTT call's launch plan printed;
+   (1 x 2^15, 1 x 2^12), and the BabyBear leaf sponge at each prove shape
+   at every group size (threads per state), with each tree's Merkle plan,
+   each NTT call's launch plan and each sponge's group printed; every NTT
+   call of a 2^12 prove must be one launch;
 4. for each field (Goldilocks under standard_recursion_config_gl, then
    BabyBear under standard_recursion_config_bb), loads the committed
    arithmetic-chain fixtures (circuit and witness as data) through
    ``load_fixture`` and proves them on the card with ``prove``: the 2^6
-   one, then the 2^12 one (that field's main path), timed over 3 warm
+   one, the 2^6 one again with its first attempts made to fail
+   (``InvZeroPermArg``) so that the random wire is redrawn from the
+   nonrandom counter the JAX retry recorded (``arith_chain*_2e6_retry.npz``:
+   each redrawn value and the proof must equal the JAX retry's), then the
+   2^12 one (that field's main path), timed over 3 warm
    proves, with every kernel's launches counted over one prove (the counts
    are set to 0 just before it).  Each proof must equal the fixture's
    stored JAX proof field by field.  One more warm 2^12 prove of each
@@ -258,8 +264,10 @@ def main() -> int:
     from plonky2_goldibear_torch.ops import ntt_bb as K_nttb
     from plonky2_goldibear_torch.ops import poseidon2_bb as K_p2
     from plonky2_goldibear_torch.ops import poseidon_gl as K_pos
+    from plonky2_goldibear_torch.iop.generator import NonRandomRng
     from plonky2_goldibear_torch.plonk import prover
-    from plonky2_goldibear_torch.plonk.circuit_data import load_fixture
+    from plonky2_goldibear_torch.plonk.circuit_data import (fixture_path,
+                                                            load_fixture)
     from plonky2_goldibear_torch.plonk.proof import (PROOF_PHASES,
                                                      flatten_proof)
 
@@ -341,8 +349,8 @@ def main() -> int:
               (135 << 12) * 8 + c.numel() * 8, 12 * (c.numel() // 2),
               main=True)
         big = rand(1, 1 << 25)
-        check("ntt_1x2^25_three_passes", "ntt_gl", lambda: K_ntt.fft(big),
-              lambda: K_ntt.fft_plain(big), 3,
+        check("ntt_1x2^25_bitrev_three_passes", "ntt_gl",
+              lambda: K_ntt.fft(big), lambda: K_ntt.fft_plain(big), 3,
               2 * big.numel() * 8, 25 * (big.numel() // 2))
         st = rand(1 << 17, 12)
         check("permute_2^17", "poseidon_gl_permute",
@@ -419,10 +427,9 @@ def main() -> int:
         if counter in ("ntt", "ntt_bb"):
             b, n, r = shape
             K = K_ntt if is_gl else K_nttb
-            if not is_gl:
-                print(f"ntt_bb plan {b} x 2^{n.bit_length() - 1} r {r}: "
-                      + json.dumps(K.plan(b, n.bit_length() - 1, sms, r)
-                                   ._asdict()))
+            print(f"{counter} plan {b} x 2^{n.bit_length() - 1} r {r}: "
+                  + json.dumps(K_nttb.plan(b, n.bit_length() - 1, sms, r,
+                                           gl if is_gl else bb)._asdict()))
             x = make(b, n)
             x[:, n >> r:] = 0
             check(key, name, lambda: K.fft(x, r), lambda: K.fft_plain(x, r),
@@ -444,6 +451,15 @@ def main() -> int:
             nbytes = (leaves.numel() + n * num_out) * es
             kernel, plain = (lambda: K.hash_leaves(leaves, num_out),
                              lambda: K.hash_leaves_plain(leaves, num_out))
+            if not is_gl:
+                # every group size, beside the planned one
+                print(f"p2_leaf_sponge plan {n} x {length}: "
+                      + json.dumps(K.sponge_plan(n, sms)))
+                for g in K.SPONGE_GROUPS:
+                    check(f"{_shape_key(call)}_g{g}", name,
+                          lambda: K._sponge(leaves, num_out, g,
+                                            K.block_for(n * g, sms)),
+                          plain, 10, nbytes, perms * perm_muls)
         else:
             n, layers = shape
             d0 = make(n, K.NUM_HASH_OUT)
@@ -474,6 +490,13 @@ def main() -> int:
         for call in sorted(shapes):
             prove_shape_check(call)
             report["checks"][_shape_key(call)]["call"] = list(call)
+        # every NTT call of a prove is one launch (rows up to 2^15)
+        for key, c in report["checks"].items():
+            call = c.get("call")
+            if call and call[0] in ("ntt", "ntt_bb") and call[2] <= 1 << 15 \
+                    and c["launches_per_call"] != 1:
+                failures.append(f"{key}: {c['launches_per_call']} launches "
+                                "for one NTT call")
     except Exception as e:
         failures.append(f"prove-shape checks: {type(e).__name__}: {e}")
 
@@ -577,6 +600,35 @@ def main() -> int:
         failures.extend(f"{field} 2^{bits}: proof phase {k} differs from "
                         "the JAX proof" for k, v in ok.items() if not v)
 
+    def check_retry(field, bits, circuit):
+        """The prove of ``circuit`` with its first attempts made to fail,
+        the random wire redrawn from the recorded nonrandom counter; the
+        redrawn values and the proof against the JAX retry's."""
+        with np.load(fixture_path(bits, field, retry=True)) as z:
+            arrays = {k: z[k] for k in z.files}
+        want = [int(v) for v in arrays["values"]]
+        real, seen = prover._internal_prove, []
+
+        def internal_prove(circuit_, wires, timings):
+            row, col = circuit_.random_wire
+            seen.append(int(circuit_.F.to_ints(wires[col, row:row + 1])[0]))
+            if len(seen) <= len(want):
+                raise prover.InvZeroPermArg()
+            return real(circuit_, wires, timings)
+
+        prover._internal_prove = internal_prove
+        try:
+            proof = prover.prove(circuit, device="cuda",
+                                 rng=NonRandomRng(int(arrays["counter"])))
+        finally:
+            prover._internal_prove = real
+        print(f"{field} 2^{bits} retry: redrawn {seen[1:]}, JAX {want}")
+        report[f"{field}_retry_2e{bits}_values"] = seen[1:]
+        if seen[1:] != want:
+            failures.append(f"{field} 2^{bits} retry: redrawn {seen[1:]}, "
+                            f"the JAX retry {want}")
+        check_proof(field, f"{bits}_retry", proof, arrays)
+
     # the counters of each path's kernels
     path_kernels = {
         "goldilocks": ("ntt", "permute", "leaf_sponge", "merkle_levels"),
@@ -589,6 +641,7 @@ def main() -> int:
             circuit, arrays = load(field, SMALL_BITS)
             check_proof(field, SMALL_BITS,
                         prover.prove(circuit, device="cuda"), arrays)
+            check_retry(field, SMALL_BITS, circuit)
             # the main path at the benchmark size: warm-up, 3 timed proves
             circuit, arrays = load(field, MAIN_BITS)
             prover.prove(circuit, device="cuda")

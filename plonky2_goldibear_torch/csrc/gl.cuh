@@ -1,9 +1,11 @@
 // Goldilocks arithmetic, p = 2^64 - 2^32 + 1, on u64 registers.
 //
 // Every function takes and returns canonical values (< p), the invariant of
-// field/gl.py.  The 64x64 -> 128 product uses __umul64hi; the reduction uses
-// 2^64 = 2^32 - 1 and 2^96 = -1 (mod p), with an exact carry/borrow at each
-// step (no lazy intermediate above p leaves a function).
+// field/gl.py, but add_lazy (and sub and mul, which also take an unreduced
+// u64 where their comments say so).  The 64x64 -> 128 product uses
+// __umul64hi; the reduction uses 2^64 = 2^32 - 1 and 2^96 = -1 (mod p),
+// with an exact carry/borrow at each step, and returns a canonical value
+// for any 128-bit product.
 #pragma once
 #include <cstdint>
 
@@ -22,6 +24,16 @@ __device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
   return canon(s);
 }
 
+// a + b for any a < 2^64 and b < p, unreduced (< 2^64, congruent): a carry
+// out of 2^64 leaves a sum below b, so adding 2^64 mod p = EPS cannot carry
+// again.
+__device__ __forceinline__ uint64_t add_lazy(uint64_t a, uint64_t b) {
+  const uint64_t s = a + b;
+  return s < a ? s + EPS : s;
+}
+
+// a - b for a < p (or, unreduced, any a < 2^64) and b < p: a borrow adds
+// p, which leaves a - b + p in [0, p).
 __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
   uint64_t d = a - b;
   return a < b ? d - EPS : d;  // borrowed 2^64: add p = 2^64 - EPS

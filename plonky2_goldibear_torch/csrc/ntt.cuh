@@ -11,13 +11,15 @@
 // [s0, s1): with the element index written as j + (k << s0) + (h << s1),
 // j < 2^s0, every butterfly of those stages pairs two elements of the same
 // (j, h) column, so a tile of 2^(LOG_TILE - (s1 - s0)) consecutive columns
-// is independent of all others.  The first pass folds the bit-reversal
-// permutation and the LDE zero-prefix skip into its load: position g reads
-// x[rev(g >> r)], and stages below r (which only replicate each
-// coefficient over its 2^r block) are skipped.  Every stage value stays
-// canonical (< p): no lazy reduction.
+// is independent of all others.  The input is already in bit-reversed
+// order (ntt_cluster.cuh's bitrev_kernel writes it, the LDE zero prefix's
+// copies included); stages below s_begin, which only replicate each
+// coefficient over its 2^r block, are skipped.  A stage value may stay
+// unreduced where the field allows it (ntt_cluster.cuh); the last pass
+// stores canonical values.
 //
-// Field must provide: typename T; static __device__ T mul(T, T), add, sub.
+// Field must provide: typename T; static __device__ T mul(T, T), add, sub,
+// canon.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -26,17 +28,12 @@ namespace ntt {
 
 constexpr int MAX_THREADS = 512;
 
-__device__ __forceinline__ uint64_t bitrev(uint64_t x, int bits) {
-  return bits == 0 ? 0 : (__brevll(x) >> (64 - bits));
-}
-
 // tw[(1 << s) - 1 + i] = w_{2^(s+1)}^i for every stage s < n_log, i < 2^s.
 template <typename Field, int LOG_TILE>
 __global__ void pass_kernel(const typename Field::T* __restrict__ in,
                             typename Field::T* out,
                             const typename Field::T* __restrict__ tw,
-                            int n_log, int s0, int s1, int s_begin,
-                            int load_bitrev, int zero_log) {
+                            int n_log, int s0, int s1, int s_begin) {
   using T = typename Field::T;
   __shared__ T buf[1 << LOG_TILE];
   const int tile_log = n_log < LOG_TILE ? n_log : LOG_TILE;
@@ -56,9 +53,7 @@ __global__ void pass_kernel(const typename Field::T* __restrict__ in,
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     const int64_t g =
         jbase + (e & cmask) + (int64_t(e >> cols_log) << s0) + hbase;
-    buf[e] = load_bitrev
-                 ? src[bitrev(uint64_t(g) >> zero_log, n_log - zero_log)]
-                 : src[g];
+    buf[e] = src[g];
   }
   __syncthreads();
 
@@ -85,15 +80,14 @@ __global__ void pass_kernel(const typename Field::T* __restrict__ in,
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     const int64_t g =
         jbase + (e & cmask) + (int64_t(e >> cols_log) << s0) + hbase;
-    dst[g] = buf[e];
+    dst[g] = s1 == n_log ? Field::canon(buf[e]) : buf[e];
   }
 }
 
 template <typename Field, int LOG_TILE>
 int launch_pass(const typename Field::T* in, typename Field::T* out,
                 const typename Field::T* tw, long long batch, int n_log,
-                int s0, int s1, int s_begin, int load_bitrev, int zero_log,
-                void* stream) {
+                int s0, int s1, int s_begin, void* stream) {
   const int tile_log = n_log < LOG_TILE ? n_log : LOG_TILE;
   const long long blocks = batch << (n_log - tile_log);
   int threads = (1 << tile_log) / 2;
@@ -101,7 +95,7 @@ int launch_pass(const typename Field::T* in, typename Field::T* out,
   if (threads < 1) threads = 1;
   pass_kernel<Field, LOG_TILE>
       <<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-          in, out, tw, n_log, s0, s1, s_begin, load_bitrev, zero_log);
+          in, out, tw, n_log, s0, s1, s_begin);
   return (int)cudaGetLastError();
 }
 

@@ -41,12 +41,29 @@
 //     SUBTREE_MAX_LAYERS levels, one block each, folded in shared memory
 //     with 16 threads per parent; the last such launch (the tail) has one
 //     block per node of the cap.
-//   * The permutation and the leaf sponge keep one thread per state (16
-//     lanes in registers for the whole permutation and, in the sponge,
-//     across all absorbs of a leaf), the round constants in __constant__
+//   * The permutation keeps one thread per state (16 lanes in registers
+//     for the whole permutation), the round constants in __constant__
 //     memory (every thread reads the same word: a broadcast).  Groups read
 //     their per-lane constants from a global copy through L1 (the constant
 //     cache serialises a warp's distinct addresses).
+//   * The leaf sponge holds a state in a group of G = 1, 4 or 16 threads
+//     for all absorbs of a leaf, G chosen per launch
+//     (ops/poseidon2_bb.py:sponge_plan): one thread where the leaves fill
+//     the card, more for the narrow FRI layers, whose permutations would
+//     otherwise be one thread's latency.  A wide sponge runs at the
+//     permute kernel's rate per permutation: it is bound by instruction
+//     issue, not by its row loads (a probe build without them,
+//     poseidon2_bb_leaf_sponge_noload, times the difference).
+//   * Fewer instructions where a bound allows it (bb.cuh): the S-box's
+//     intermediate products stay in (0, 2p) where the other factor is
+//     canonical; the internal layer's lane i, SCALE (u + y) + s_i d_i, is
+//     one fused multiply-add of two canonical products and one reduction;
+//     its head takes u - y + p < 2p unreduced; the M4 blocks take 8 adds
+//     and 2 doublings (Horizen's order).  Every lane is canonical at the
+//     end of every round.  A state in one thread is short of warps (a
+//     2^15-leaf sponge gives an SM 8), so the partial rounds sum the lanes
+//     in a tree: with the 14 adds in a chain the fused lanes lost to the
+//     unfused ones, with the tree they win.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -77,11 +94,16 @@ __device__ uint32_t SCALED_DIAG_LANES[WIDTH];
 __device__ uint32_t DIAG_POW_LANES[WIDTH * (N_PARTIAL + 1)];
 __constant__ uint32_t DIAG_POW_SUMS[N_PARTIAL];
 
+// x^7 of a canonical x, canonical.  Each product has a canonical factor
+// and one below 2p, so it stays below 2p^2 < p 2^32 (bb.cuh): x^2 and x^3
+// are kept in (0, 2p), x^2 and x^4 also canonical.
 __device__ __forceinline__ uint32_t sbox(uint32_t x) {
-  const uint32_t x2 = bb::mul(x, x);
-  const uint32_t x3 = bb::mul(x2, x);
-  const uint32_t x4 = bb::mul(x2, x2);
-  return bb::mul(x3, x4);
+  const uint32_t r2 = bb::redc_signed(uint64_t(x) * x);   // in (-p, p)
+  const uint32_t x2l = r2 + bb::P;                        // in (0, 2p)
+  const uint32_t x2 = bb::fold(r2, x2l);
+  const uint32_t x3l = bb::mul_lazy(x2l, x);              // in (0, 2p)
+  const uint32_t x4 = bb::mul(x2l, x2);
+  return bb::mul(x3l, x4);
 }
 
 __device__ __forceinline__ uint32_t twice(uint32_t x) { return bb::add(x, x); }
@@ -105,16 +127,18 @@ __device__ __forceinline__ uint32_t xor_sum(uint32_t v, unsigned mask,
 
 // y = M4 x with M4 = [[2,3,1,1],[1,2,3,1],[1,1,2,3],[3,1,1,2]]: y_k =
 // sum(x) + x_k + 2 x_(k+1 mod 4) (reference apply_mat4,
-// gates/poseidon2_babybear.rs:903-918).
+// gates/poseidon2_babybear.rs:903-918), in 8 adds and 2 doublings.
 __device__ __forceinline__ void mat4(uint32_t* x) {
-  const uint32_t t = bb::add(bb::add(x[0], x[1]), bb::add(x[2], x[3]));
-  const uint32_t y0 = bb::add(bb::add(t, x[0]), twice(x[1]));
-  const uint32_t y1 = bb::add(bb::add(t, x[1]), twice(x[2]));
-  const uint32_t y2 = bb::add(bb::add(t, x[2]), twice(x[3]));
-  const uint32_t y3 = bb::add(bb::add(t, x[3]), twice(x[0]));
-  x[0] = y0;
+  const uint32_t t01 = bb::add(x[0], x[1]);
+  const uint32_t t23 = bb::add(x[2], x[3]);
+  const uint32_t t0123 = bb::add(t01, t23);
+  const uint32_t t01123 = bb::add(t0123, x[1]);   // x0 + 2 x1 + x2 + x3
+  const uint32_t t01233 = bb::add(t0123, x[3]);   // x0 + x1 + x2 + 2 x3
+  const uint32_t y3 = bb::add(t01233, twice(x[0]));
+  const uint32_t y1 = bb::add(t01123, twice(x[2]));
+  x[0] = bb::add(t01123, t01);
+  x[2] = bb::add(t01233, t23);
   x[1] = y1;
-  x[2] = y2;
   x[3] = y3;
 }
 
@@ -197,7 +221,37 @@ __device__ __forceinline__ void full_round(uint32_t s[], int r, int q,
   external_layer<G>(s, q, mask);
 }
 
-// Lane 0 += INT_RC[r], x^7 on lane 0, then the internal layer.
+// The sum of lanes 1..15 among this thread's lanes (thread 0 leaves out
+// its s[0], lane 0), in a pairwise tree: depth 4 adds for one thread, not
+// 14, so the sum does not hold up the next round.
+template <int G>
+__device__ __forceinline__ uint32_t sum_lanes_1_15(const uint32_t s[], int q) {
+  constexpr int L = Group<G>::L;
+  if constexpr (L == 1) {
+    return q == 0 ? 0u : s[0];
+  } else if constexpr (G == 1) {
+    uint32_t t[8];
+#pragma unroll
+    for (int j = 0; j < 7; ++j) t[j] = bb::add(s[1 + 2 * j], s[2 + 2 * j]);
+    t[7] = s[15];
+#pragma unroll
+    for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] = bb::add(t[j], t[j + w]);
+    return t[0];
+  } else {
+    static_assert(L == 4, "the groups the kernels use");
+    const uint32_t a = q == 0 ? s[1] : bb::add(s[0], s[1]);
+    return bb::add(a, bb::add(s[2], s[3]));
+  }
+}
+
+// Lane 0 += INT_RC[r], x^7 on lane 0, then the internal layer: with u the
+// sum of lanes 1..15 and y lane 0's S-box, head = SCALE (u - y), lane i =
+// SCALE (u + y) + s_i d_i.  Lane i is one reduction of the fused products
+// (u + y) SCALE + s_i d_i, both of canonical factors: < 2p^2 < p 2^32.  The
+// head's factor u - y + p < 2p goes in unreduced (the other is SCALE < p,
+// bb.cuh).
 template <int G>
 __device__ __forceinline__ void partial_round(uint32_t s[], int r, int q,
                                               unsigned mask,
@@ -206,15 +260,14 @@ __device__ __forceinline__ void partial_round(uint32_t s[], int r, int q,
   uint32_t x0 = s[0];
   if constexpr (G > 1) x0 = __shfl_sync(mask, s[0], 0, G);   // lane 0
   const uint32_t y0 = sbox(bb::add(x0, c.int_rc(r)));
-  uint32_t u = (G == 1 || q == 0) ? 0u : s[0];   // lanes 1..15 of this thread
-#pragma unroll
-  for (int j = 1; j < L; ++j) u = bb::add(u, s[j]);
+  uint32_t u = sum_lanes_1_15<G>(s, q);
   if constexpr (G > 1) u = xor_sum<G>(u, mask, 1);
-  const uint32_t head = bb::mul(bb::sub(u, y0), c.scale_());
-  const uint32_t full = bb::mul(bb::add(u, y0), c.scale_());
+  const uint32_t head = bb::mul(u - y0 + bb::P, c.scale_());
+  const uint64_t full = uint64_t(bb::add(u, y0)) * c.scale_();
 #pragma unroll
   for (int j = 0; j < L; ++j)
-    s[j] = (j == 0 && q == 0) ? head : bb::add(full, bb::mul(s[j], c.diag(j)));
+    s[j] = (j == 0 && q == 0) ? head
+                              : bb::redc(uint64_t(s[j]) * c.diag(j) + full);
 }
 
 // The 13 partial rounds for a group of 16 threads (a subtree's), with one
@@ -323,26 +376,38 @@ __global__ void permute_kernel(const uint32_t* __restrict__ in, uint32_t* out,
 }
 
 // rows (n, leaf_len) -> (n, num_out): overwrite-mode sponge from a zero
-// state; the first num_out <= WIDTH lanes of the final state.
+// state, one state per group of G threads for all absorbs of its row; the
+// first num_out <= WIDTH lanes of the final state.  Without LOADS (a probe
+// build, never on the main path) each absorb takes the leaf's index plus
+// the position (one add, < p for fewer than 2^30 leaves) in place of the
+// row's value: the sponge's time without its row loads.
+template <int G, bool LOADS>
 __global__ void leaf_sponge_kernel(const uint32_t* __restrict__ in,
                                    uint32_t* out, int64_t n, int leaf_len,
                                    int num_out) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t* row = in + i * leaf_len;
-  uint32_t s[WIDTH];
+  constexpr int L = Group<G>::L;
+  const Member<G> m(int64_t(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (m.group >= n) return;   // whole groups leave together
+  const Consts<G> c(m.q);
+  const uint32_t* row = in + m.group * leaf_len;
+  uint32_t s[L];
 #pragma unroll
-  for (int t = 0; t < WIDTH; ++t) s[t] = 0;
-  for (int c = 0; c < leaf_len; c += RATE) {
-    const int k = leaf_len - c < RATE ? leaf_len - c : RATE;
+  for (int j = 0; j < L; ++j) s[j] = 0;
+  for (int a = 0; a < leaf_len; a += RATE) {
+    const int k = leaf_len - a < RATE ? leaf_len - a : RATE;
 #pragma unroll
-    for (int t = 0; t < RATE; ++t)
-      if (t < k) s[t] = row[c + t];
-    permute<1>(s, 0, 0, Consts<1>(0));
+    for (int j = 0; j < L; ++j) {
+      const int lane = m.q * L + j;
+      if (lane < k)
+        s[j] = LOADS ? row[a + lane] : uint32_t(m.group + a + lane);
+    }
+    permute<G>(s, m.q, m.mask, c);
   }
 #pragma unroll
-  for (int t = 0; t < WIDTH; ++t)
-    if (t < num_out) out[i * num_out + t] = s[t];
+  for (int j = 0; j < L; ++j) {
+    const int lane = m.q * L + j;
+    if (lane < num_out) out[m.group * num_out + lane] = s[j];
+  }
 }
 
 // dst[0:8] = the first 8 lanes of permute(pair[0:16]) (pair = left ||
@@ -423,6 +488,30 @@ int launch_level(const uint32_t* in, uint32_t* out, long long n_parents,
   return (int)cudaGetLastError();
 }
 
+template <int G, bool LOADS>
+int launch_sponge(const uint32_t* in, uint32_t* out, long long n,
+                  int leaf_len, int num_out, int threads, cudaStream_t stream) {
+  leaf_sponge_kernel<G, LOADS><<<blocks_for(n * G, threads), threads, 0,
+                                 stream>>>(in, out, n, leaf_len, num_out);
+  return (int)cudaGetLastError();
+}
+
+template <bool LOADS>
+int sponge(const uint32_t* in, uint32_t* out, long long n, int leaf_len,
+           int num_out, int group, int threads, void* stream) {
+  if (n <= 0) return 0;
+  if (!valid_block(threads) || leaf_len < 1 || num_out < 1 ||
+      num_out > WIDTH)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (group) {
+    case 1: return launch_sponge<1, LOADS>(in, out, n, leaf_len, num_out, threads, st);
+    case 4: return launch_sponge<4, LOADS>(in, out, n, leaf_len, num_out, threads, st);
+    case 16: return launch_sponge<16, LOADS>(in, out, n, leaf_len, num_out, threads, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // ext_rc (8 x 16), int_rc (13), scale (1), scaled_diag (16: lane 0 unused,
@@ -458,14 +547,22 @@ extern "C" int poseidon2_bb_permute(const uint32_t* in, uint32_t* out,
   return (int)cudaGetLastError();
 }
 
+// group: threads per state (1, 4 or 16); threads: per block, a multiple
+// of 32.
 extern "C" int poseidon2_bb_leaf_sponge(const uint32_t* in, uint32_t* out,
                                         long long n, int leaf_len,
-                                        int num_out, void* stream) {
-  if (n > 0)
-    leaf_sponge_kernel<<<blocks_for(n, THREADS), THREADS, 0,
-                         (cudaStream_t)stream>>>(in, out, n, leaf_len,
-                                                 num_out);
-  return (int)cudaGetLastError();
+                                        int num_out, int group, int threads,
+                                        void* stream) {
+  return sponge<true>(in, out, n, leaf_len, num_out, group, threads, stream);
+}
+
+// The probe build: the same launch, no row loads (`in` is not read).
+extern "C" int poseidon2_bb_leaf_sponge_noload(const uint32_t* in,
+                                               uint32_t* out, long long n,
+                                               int leaf_len, int num_out,
+                                               int group, int threads,
+                                               void* stream) {
+  return sponge<false>(in, out, n, leaf_len, num_out, group, threads, stream);
 }
 
 // group: threads per state (1 or 4); threads: per block, a multiple of 32.

@@ -1,19 +1,23 @@
 """Device times of one tree's kernels at the shapes of a prove, to hold
-two trees' kernels against each other on one card: the Poseidon-GL leaf
-sponge and Merkle levels (Goldilocks), the NTT and the Poseidon2 Merkle
-levels (BabyBear).
+two trees' kernels against each other on one card: the NTT, the
+Poseidon-GL leaf sponge and Merkle levels (Goldilocks), the NTT, the
+Poseidon2 permutation, leaf sponge and Merkle levels (BabyBear).
 
     python plonky2_goldibear_torch/kernel_times.py --root DIR \\
         --report chip_smoke_out/chip_smoke_report.json [--out FILE]
 
 It imports ``plonky2_goldibear_torch`` from DIR, a checkout of any tree
-whose port has ``ops.poseidon_gl.hash_leaves(inputs, num_outputs)`` and
+whose port has ``ops.ntt.fft(x, zero_prefix_log)``,
+``ops.poseidon_gl.hash_leaves(inputs, num_outputs)`` and
 ``merkle_levels(d0, num_layers)``, ``ops.ntt_bb.fft(x, zero_prefix_log)``
-and ``ops.poseidon2_bb.merkle_levels(d0, num_layers)``, with their plain
+and ``ops.poseidon2_bb.permute(states)``, ``hash_leaves(inputs,
+num_outputs)`` and ``merkle_levels(d0, num_layers)``, with their plain
 versions.  The shapes are those that ``chip_smoke.py`` checked these
 kernels at, read from its report: every call of one 2^12 prove of the
 kernel's field, and the extra shapes it checks (trees of other caps, the
-BabyBear NTT's single rows).  For each shape it prints the ms per call
+BabyBear NTT's single rows), and EXTRA: both NTTs at one row of 2^25 and
+the Poseidon2 permutation at 2^17 states.  For each shape it prints the ms
+per call
 (CUDA events over 10 calls after a warm-up, median of 5 trials; the
 wrapper's host time included, as in ``chip_smoke.py``) and whether the
 output equals the tree's plain version.  One JSON line; card only.
@@ -28,7 +32,10 @@ import statistics
 import subprocess
 import sys
 
-KINDS = ("leaf_sponge", "merkle_levels", "ntt_bb", "p2_merkle_levels")
+KINDS = ("ntt", "leaf_sponge", "merkle_levels", "ntt_bb", "p2_permute",
+         "p2_leaf_sponge", "p2_merkle_levels")
+EXTRA = (("ntt", 1, 1 << 25, 0), ("ntt_bb", 1, 1 << 25, 0),
+         ("p2_permute", 1 << 17))
 CALLS_PER_TRIAL = 10
 TRIALS = 5
 P = 0xFFFFFFFF00000001          # the Goldilocks prime
@@ -39,7 +46,7 @@ def shapes_of(report: dict):
     """The (kind, *shape) of every check of a kernel of KINDS in the
     report's prove-shape phase, in the order checked."""
     return [tuple(c["call"]) for c in report["checks"].values()
-            if c.get("call") and c["call"][0] in KINDS]
+            if c.get("call") and c["call"][0] in KINDS] + list(EXTRA)
 
 
 def main(argv=None) -> int:
@@ -60,6 +67,7 @@ def main(argv=None) -> int:
     root = os.path.abspath(args.root)
     sys.path[0:1] = [root]       # not this file's directory
     from plonky2_goldibear_torch.field import bb
+    from plonky2_goldibear_torch.ops import ntt as NG
     from plonky2_goldibear_torch.ops import ntt_bb as NB
     from plonky2_goldibear_torch.ops import poseidon2_bb as K2
     from plonky2_goldibear_torch.ops import poseidon_gl as K
@@ -94,17 +102,24 @@ def main(argv=None) -> int:
 
     times = []
     for kind, *shape in shapes:
-        if kind == "leaf_sponge":
+        if kind in ("leaf_sponge", "p2_leaf_sponge"):
             n, length, num_out = shape
-            x = rand(n, length)
-            fn = lambda: K.hash_leaves(x, num_out)          # noqa: E731
-            equal = torch.equal(fn(), K.hash_leaves_plain(x, num_out))
-        elif kind == "ntt_bb":
+            M = K if kind == "leaf_sponge" else K2
+            x = rand(n, length) if M is K else rand_bb(n, length)
+            fn = lambda: M.hash_leaves(x, num_out)          # noqa: E731
+            equal = torch.equal(fn(), M.hash_leaves_plain(x, num_out))
+        elif kind in ("ntt", "ntt_bb"):
             batch, n, r = shape
-            x = rand_bb(batch, n)
+            M = NG if kind == "ntt" else NB
+            x = rand(batch, n) if M is NG else rand_bb(batch, n)
             x[:, n >> r:] = 0
-            fn = lambda: NB.fft(x, r)                       # noqa: E731
-            equal = torch.equal(fn(), NB.fft_plain(x, r))
+            fn = lambda: M.fft(x, r)                        # noqa: E731
+            equal = torch.equal(fn(), M.fft_plain(x, r))
+        elif kind == "p2_permute":
+            (n,) = shape
+            x = rand_bb(n, 16)
+            fn = lambda: K2.permute(x)                      # noqa: E731
+            equal = torch.equal(fn(), K2.permute_plain(x))
         else:
             n, layers = shape
             M = K if kind == "merkle_levels" else K2

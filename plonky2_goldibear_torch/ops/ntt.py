@@ -3,18 +3,19 @@ plain torch versions of both fields' kernels.
 
 Replaces the TPU kernel ``plonky2_goldibear_tpu/ops/ntt.py:_fft_fused``
 (with ``_fft_four_step`` above 2^16).  On the H100 the transform is bound
-by device-memory passes, not arithmetic; the kernel keeps a 32 KB tile in
-shared memory and runs every stage the tile spans before writing back, so
-an NTT of length 2^n costs ceil(n / LOG_TILE) passes (see the note in
-``csrc/ntt.cuh``).  The first pass folds in the bit-reversal and the LDE
-zero-prefix skip.
+by its butterflies (a ``gl::mul`` each), not by device memory: a row of
+up to 2^15 takes one launch in the shared memory of a thread-block
+cluster (``csrc/ntt_cluster.cuh``; the plan, the launch and the plain
+replay ``fft_by_cluster`` are ``ops/ntt_bb.py``'s, shared by both
+fields).  Longer rows take a coalesced bit-reversal launch and then the
+passes of ``csrc/ntt.cuh``: a 32 KB tile in shared memory runs every stage
+it spans before writing back, so they cost ceil(n / LOG_TILE) passes.
 
-``fft(x, zero_prefix_log)`` launches the kernel for a CUDA tensor and runs
-``fft_plain`` for a CPU tensor; there is no other dispatch.
-``fft_by_passes`` replays the kernel's pass decomposition in plain torch so
-the CPU tests check its index arithmetic.  The plain functions take the
-field module ``F`` (``gl`` or ``bb``).  ``ops/ntt_bb.py`` runs these passes
-only for rows above 2^15 (its own cluster kernel takes the rest).
+``fft(x, zero_prefix_log)`` launches the kernels for a CUDA tensor and
+runs ``fft_plain`` for a CPU tensor; there is no other dispatch.
+``fft_by_passes`` replays the pass decomposition in plain torch so the CPU
+tests check its index arithmetic.  The plain functions take the field
+module ``F`` (``gl`` or ``bb``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from ..field import gl, host
 from . import record
 
-LOG_TILE = 12           # must match ntt_gl_pass in csrc/ntt_gl.cu
+LOG_TILE = 12           # Goldilocks' pass tile; must match csrc/ntt_gl.cu
 launches = 0            # kernel launches since the last reset
 
 
@@ -114,8 +115,9 @@ def fft_plain(x: torch.Tensor, zero_prefix_log: int = 0, F=gl
 
 def fft_by_passes(x: torch.Tensor, zero_prefix_log: int = 0,
                   tile_log: int = LOG_TILE, F=gl) -> torch.Tensor:
-    """The kernel's schedule in plain torch: passes of ``pass_plan``, each
-    over (column, k) tiles with index j + (k << s0) + (h << s1)."""
+    """The schedule of rows above 2^15 in plain torch: the bit-reversal,
+    then passes of ``pass_plan``, each over (column, k) tiles with index
+    j + (k << s0) + (h << s1)."""
     n = x.shape[-1]
     n_log = host.log2_strict(n)
     batch = x.shape[:-1]
@@ -156,34 +158,8 @@ def pass_fn(lib_name: str):
     fn = getattr(_build.lib(lib_name), lib_name + "_pass")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + \
-        [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_int] * 4 + [ctypes.c_void_p]
     return fn
-
-
-def launch_passes(x: torch.Tensor, zero_prefix_log: int, F, lib_name: str,
-                  tile_log: int) -> torch.Tensor:
-    """Run the passes of ``pass_plan(n_log, tile_log)`` through the kernel
-    ``<lib_name>_pass`` of ``csrc/<lib_name>.cu``; returns the output and
-    the number of launches."""
-    from . import _build
-
-    n = x.shape[-1]
-    n_log = host.log2_strict(n)
-    flat = x.reshape(-1, n)
-    if not flat.is_contiguous():
-        raise ValueError("fft kernel needs a contiguous tensor")
-    out = torch.empty_like(flat)
-    tw = twiddles(n_log, str(x.device), F)
-    fn = pass_fn(lib_name)
-    stream = _build.stream_ptr(x.device)
-    plan = pass_plan(n_log, tile_log)
-    for p, (s0, s1) in enumerate(plan):
-        src = flat if p == 0 else out
-        err = fn(src.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                 flat.shape[0], n_log, s0, s1, max(s0, zero_prefix_log),
-                 int(p == 0), zero_prefix_log, stream)
-        _build.check(err, lib_name + "_pass")
-    return out.reshape(x.shape), len(plan)
 
 
 def check_input(x: torch.Tensor, F) -> bool:
@@ -201,13 +177,18 @@ def fft(x: torch.Tensor, zero_prefix_log: int = 0) -> torch.Tensor:
     """Forward NTT over the last axis of (..., N), natural order in and out:
     ``fft(c)[k] = sum_i c_i g^(ik)``, g of order N.  ``zero_prefix_log`` = r
     declares that only the first N / 2^r coefficients may be nonzero."""
+    from . import ntt_bb
+
     global launches
     if check_input(x, gl):
         return x.clone()
+    n_log = x.shape[-1].bit_length() - 1
+    if not 0 <= zero_prefix_log <= n_log:
+        raise ValueError(f"fft: zero_prefix_log {zero_prefix_log} outside "
+                         f"[0, {n_log}]")
     if x.is_cuda:
         record("ntt", x.numel() // x.shape[-1], x.shape[-1], zero_prefix_log)
-        out, k = launch_passes(x.contiguous(), zero_prefix_log, gl,
-                               "ntt_gl", LOG_TILE)
+        out, k = ntt_bb.launch(x, zero_prefix_log, gl)
         launches += k
         return out
     return fft_plain(x, zero_prefix_log)

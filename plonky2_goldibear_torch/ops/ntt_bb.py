@@ -1,5 +1,5 @@
 """Batched BabyBear NTT: the CUDA kernel ``csrc/ntt_bb.cu`` and its plain
-torch version.
+torch version; and the cluster launch both fields' NTTs share.
 
 Replaces the TPU kernel ``plonky2_goldibear_tpu/ops/ntt_bb.py:_fft_fused``
 (with ``fft`` and, above 2^16, ``_fft_four_step``).  Values and twiddles
@@ -8,12 +8,15 @@ Montgomery product with a canonical add and subtract, and no value leaves
 [0, p).
 
 A row of up to 2^15 elements is transformed by one launch in the shared
-memory of a thread-block cluster (see the note in the source): ``plan``
-chooses the cluster size, threads and shared bytes from the batch, the
-row length and the SM count, and ``fft_by_cluster`` replays that
-schedule's index arithmetic in plain torch for the CPU tests.  Longer
-rows (to 2^26) take a coalesced bit-reversal launch and then the passes
-of ``csrc/ntt.cuh`` (``fft_by_passes``).
+memory of a thread-block cluster (``csrc/ntt_cluster.cuh``, instantiated
+for BabyBear by ``csrc/ntt_bb.cu`` and for Goldilocks by
+``csrc/ntt_gl.cu``): ``plan`` chooses the cluster size, threads and shared
+bytes from the batch, the row length, the SM count and the field's word
+size, and ``fft_by_cluster`` replays that schedule's index arithmetic in
+plain torch for the CPU tests.  Longer rows (to 2^26) take a coalesced
+bit-reversal launch and then the passes of ``csrc/ntt.cuh``
+(``fft_by_passes``).  These functions take the field module ``F`` (``bb``
+by default, or ``gl``); ``ops/ntt.py:fft`` launches them for Goldilocks.
 
 ``fft(x, zero_prefix_log)`` launches the kernel for a CUDA tensor and runs
 ``fft_plain`` for a CPU tensor; there is no other dispatch and no size
@@ -28,10 +31,12 @@ from typing import List, NamedTuple
 
 import torch
 
-from ..field import bb, host
+from ..field import bb, gl, host
 from . import ntt, record
 
-LOG_TILE = 13           # the multi-pass tile; must match csrc/ntt_bb.cu
+# the launch limits of csrc/ntt_bb.cu and csrc/ntt_gl.cu (the same for both
+# fields but the pass tile)
+LOG_TILE = 13           # BabyBear's multi-pass tile (Goldilocks: ntt.LOG_TILE)
 CLUSTER_MAX_LOG = 15    # rows up to 2^15 take one cluster launch
 MAX_CLUSTER_LOG = 4     # at most 16 blocks a cluster
 MIN_BLOCK_LOG = 9       # a block of a cluster of 2 or more holds >= 2^9
@@ -43,6 +48,10 @@ MAX_SMEM = 232448       # bytes of shared memory one block can use
 SM_SMEM = 233472        # per SM, of which 1 KB is reserved per block
 SM_THREADS = 2048
 FILL_THREADS = 1024     # resident threads per SM a launch aims for
+# blocks a launch aims to give every SM, by word size: a Goldilocks
+# butterfly is about three BabyBear ones, so its rows spread further
+# (probes ntt_gl_clusters / ntt_bb_clusters)
+FILL_BLOCKS = {4: 1, 8: 2}
 launches = 0            # kernel launches since the last reset
 
 
@@ -63,13 +72,22 @@ class Plan(NamedTuple):
     clusters: int
 
 
-def smem_bytes(n_log: int, c_log: int, zero_prefix_log: int = 0) -> int:
-    """A block's shared memory (l = n_log - c_log): its 2^l positions, the
-    compact buffer of its 2^(l - r) nonzero coefficients, the 2^l - 1
-    twiddles of the stages on lo (and a spare word), and the 2^l - 2^(l-c)
-    of the stages on hi."""
+def _lib_name(F) -> str:
+    return "ntt_gl" if F is gl else "ntt_bb"
+
+
+def _tile_log(F) -> int:
+    return ntt.LOG_TILE if F is gl else LOG_TILE
+
+
+def smem_bytes(n_log: int, c_log: int, zero_prefix_log: int = 0,
+               F=bb) -> int:
+    """A block's shared memory (l = n_log - c_log) in words of ``F``: its
+    2^l positions, the compact buffer of its 2^(l - r) nonzero
+    coefficients, the 2^l - 1 twiddles of the stages on lo (and a spare
+    word), and the 2^l - 2^(l-c) of the stages on hi."""
     L = 1 << (n_log - c_log)
-    return 4 * (3 * L + (L >> zero_prefix_log) - (L >> c_log))
+    return F.DTYPE.itemsize * (3 * L + (L >> zero_prefix_log) - (L >> c_log))
 
 
 def threads_for(l_log: int) -> int:
@@ -78,52 +96,57 @@ def threads_for(l_log: int) -> int:
     return min(MAX_THREADS, max(32, (1 << l_log) >> 1))
 
 
-def blocks_per_sm(n_log: int, c_log: int, zero_prefix_log: int = 0) -> int:
-    smem = smem_bytes(n_log, c_log, zero_prefix_log)
+def blocks_per_sm(n_log: int, c_log: int, zero_prefix_log: int = 0,
+                  F=bb) -> int:
+    smem = smem_bytes(n_log, c_log, zero_prefix_log, F)
     threads = threads_for(n_log - c_log)
     return min(SM_SMEM // (smem + 1024), SM_THREADS // threads,
                65536 // (REGS * threads), 32)
 
 
-def cluster_logs(n_log: int, zero_prefix_log: int = 0) -> List[int]:
+def cluster_logs(n_log: int, zero_prefix_log: int = 0, F=bb) -> List[int]:
     """The cluster sizes (log2) a row of 2^n_log can take: one block, or
     blocks of at least 2^MIN_BLOCK_LOG positions, more than 2^r of them,
-    whose lo ranges hold 4 or more and that a thread's MAX_XCHG registers
-    exchange; all within a block's shared memory."""
+    whose lo ranges hold 4 or more and that a thread's MAX_XCHG 16-byte
+    registers exchange; all within a block's shared memory."""
     r = zero_prefix_log
+    word = F.DTYPE.itemsize
     return [c for c in range(MAX_CLUSTER_LOG + 1)
             if (c == 0 or (n_log - c >= MIN_BLOCK_LOG and n_log - c > r
                            and n_log - 2 * c >= 2
-                           and 1 << (n_log - c) <= 4 * MAX_XCHG
+                           and word << (n_log - c) <= 16 * MAX_XCHG
                            * threads_for(n_log - c)))
-            and smem_bytes(n_log, c, r) <= MAX_SMEM]
+            and smem_bytes(n_log, c, r, F) <= MAX_SMEM]
 
 
 def cluster_plan(batch: int, n_log: int, c_log: int, sms: int,
-                 zero_prefix_log: int = 0) -> Plan:
+                 zero_prefix_log: int = 0, F=bb) -> Plan:
     """The launch of a given cluster size: as many clusters as fit on the
     card at once (each then walks the rows), at most one per row."""
-    resident = max(1, blocks_per_sm(n_log, c_log, zero_prefix_log) * sms
+    resident = max(1, blocks_per_sm(n_log, c_log, zero_prefix_log, F) * sms
                    >> c_log)
     return Plan("cluster", c_log, threads_for(n_log - c_log),
-                smem_bytes(n_log, c_log, zero_prefix_log),
+                smem_bytes(n_log, c_log, zero_prefix_log, F),
                 min(batch, resident))
 
 
 @lru_cache(maxsize=256)
-def plan(batch: int, n_log: int, sms: int, zero_prefix_log: int = 0) -> Plan:
-    """The launch of ``fft`` for ``batch`` rows of 2^n_log: the smallest
-    cluster that gives every SM a block and FILL_THREADS resident threads,
-    else (a batch of a few rows) the largest cluster the row allows."""
+def plan(batch: int, n_log: int, sms: int, zero_prefix_log: int = 0,
+         F=bb) -> Plan:
+    """The launch of ``fft`` for ``batch`` rows of 2^n_log of field ``F``:
+    the smallest cluster that gives every SM FILL_BLOCKS blocks and
+    FILL_THREADS resident threads, else (a batch of a few rows) the
+    largest cluster the row allows."""
     if n_log > CLUSTER_MAX_LOG:
         return Plan("passes", 0, 0, 0, 0)
     r = zero_prefix_log
-    logs = cluster_logs(n_log, r)
+    logs = cluster_logs(n_log, r, F)
+    fill = FILL_BLOCKS[F.DTYPE.itemsize] * sms
     for c in logs:
-        if batch << c >= sms and blocks_per_sm(n_log, c, r) * \
+        if batch << c >= fill and blocks_per_sm(n_log, c, r, F) * \
                 threads_for(n_log - c) >= FILL_THREADS:
-            return cluster_plan(batch, n_log, c, sms, r)
-    return cluster_plan(batch, n_log, logs[-1], sms, r)
+            return cluster_plan(batch, n_log, c, sms, r, F)
+    return cluster_plan(batch, n_log, logs[-1], sms, r, F)
 
 
 # --------------------------------------------------------------------------
@@ -150,10 +173,12 @@ def _rev(i: torch.Tensor, bits: int) -> torch.Tensor:
     return r
 
 
-def _swz(p: torch.Tensor, m: int) -> torch.Tensor:
+def _swz(p: torch.Tensor, m: int, F=bb) -> torch.Tensor:
     """The compact buffer's address of position p < 2^m (the kernel's
-    ``swz``)."""
-    return p ^ (p >> max(m - 5, 5))
+    ``swz``: the top bits XORed into the low 5 for u32 words, 4 for
+    u64)."""
+    sb = 5 if F.DTYPE.itemsize == 4 else 4
+    return p ^ (p >> max(m - sb, sb))
 
 
 def _radix_pass(F, data, s: int, rows, x=None) -> None:
@@ -182,14 +207,14 @@ def _radix_pass(F, data, s: int, rows, x=None) -> None:
 
 
 def fft_by_cluster(x: torch.Tensor, zero_prefix_log: int = 0,
-                   c_log: int = 0) -> torch.Tensor:
+                   c_log: int = 0, F=bb) -> torch.Tensor:
     """The cluster kernel's schedule in plain torch, all blocks of a row at
     once: the strided load into each block's swizzled compact buffer, the
     stages on lo in passes of up to MAX_R (the first from the compact
     buffer), the exchange, the stages on hi with each block's twiddles, the
     store in runs of L / C.  Any c_log with
-    n_log - c_log > r and n_log - 2 c_log >= 2 (or c_log = 0)."""
-    F = bb
+    n_log - c_log > r and n_log - 2 c_log >= 2 (or c_log = 0); ``F`` is
+    the field module of x (``bb`` or ``gl``)."""
     n = x.shape[-1]
     n_log = host.log2_strict(n)
     r = zero_prefix_log
@@ -207,7 +232,7 @@ def fft_by_cluster(x: torch.Tensor, zero_prefix_log: int = 0,
     j = torch.arange(1 << m_log, device=dev)
     src = (j[None, :] << c_log) | _rev(ranks, c_log)[:, None]     # (C, Mc)
     compact = F.zeros((batch, C, 1 << m_log), dev)
-    compact[:, ranks[:, None], _swz(_rev(j, m_log), m_log)[None, :]] = \
+    compact[:, ranks[:, None], _swz(_rev(j, m_log), m_log, F)[None, :]] = \
         flat[:, src]
     data = F.zeros((batch, C, L), dev)
     if r == l_log:
@@ -221,7 +246,7 @@ def fft_by_cluster(x: torch.Tensor, zero_prefix_log: int = 0,
             v = torch.arange(L >> R, device=dev)
             cpos = (v >> r)[:, None] * (1 << R) + torch.arange(1 << R,
                                                                 device=dev)
-            first = compact[..., _swz(cpos, m_log)]
+            first = compact[..., _swz(cpos, m_log, F)]
         _radix_pass(F, data, s, rows, first)
         s += R
     if c_log:
@@ -255,26 +280,35 @@ def fft_by_cluster(x: torch.Tensor, zero_prefix_log: int = 0,
 
 
 # --------------------------------------------------------------------------
-# kernel wrapper
+# kernel wrapper (both fields' cluster and pass launches)
 # --------------------------------------------------------------------------
 
 
+class _Fns(NamedTuple):
+    """The C entry points of one NTT library."""
+    cluster: object
+    bitrev: object
+    active_clusters: object
+
+
 @lru_cache(maxsize=None)
-def _lib():
-    """The built library with its C signatures set (once)."""
+def _lib(name: str = "ntt_bb") -> _Fns:
+    """The entry points of the built library ``csrc/<name>.cu``
+    (``ntt_bb`` or ``ntt_gl``), their C signatures set (once)."""
     from . import _build
 
-    lib = _build.lib("ntt_bb")
+    lib = _build.lib(name)
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.ntt_bb_cluster.restype = i32
-    lib.ntt_bb_cluster.argtypes = [vp, vp, vp, ll] + [i32] * 6 + [vp]
-    lib.ntt_bb_bitrev.restype = i32
-    lib.ntt_bb_bitrev.argtypes = [vp, vp, ll, i32, i32, vp]
-    lib.ntt_bb_active_clusters.restype = i32
-    lib.ntt_bb_active_clusters.argtypes = [i32] * 3
-    assert lib.ntt_bb_cluster_max_log() == CLUSTER_MAX_LOG
-    assert lib.ntt_bb_max_cluster_log() == MAX_CLUSTER_LOG
-    return lib
+    fns = _Fns(getattr(lib, name + "_cluster"), getattr(lib, name + "_bitrev"),
+               getattr(lib, name + "_active_clusters"))
+    for fn in fns:
+        fn.restype = i32
+    fns.cluster.argtypes = [vp, vp, vp, ll] + [i32] * 6 + [vp]
+    fns.bitrev.argtypes = [vp, vp, ll, i32, i32, vp]
+    fns.active_clusters.argtypes = [i32] * 3
+    assert getattr(lib, name + "_cluster_max_log")() == CLUSTER_MAX_LOG
+    assert getattr(lib, name + "_max_cluster_log")() == MAX_CLUSTER_LOG
+    return fns
 
 
 @lru_cache(maxsize=8)
@@ -283,20 +317,20 @@ def _sms(index: int) -> int:
 
 
 @lru_cache(maxsize=64)
-def _twiddles(n_log: int, index: int) -> torch.Tensor:
-    """The twiddle table on card ``index``, built once."""
-    return ntt.twiddles(n_log, f"cuda:{index}", bb)
+def _twiddles(n_log: int, index: int, F=bb) -> torch.Tensor:
+    """The twiddle table of ``F`` on card ``index``, built once."""
+    return ntt.twiddles(n_log, f"cuda:{index}", F)
 
 
-def active_clusters(p: Plan) -> int:
+def active_clusters(p: Plan, F=bb) -> int:
     """Clusters of plan ``p``'s shape the card holds at once (the CUDA
     occupancy query); a launch takes at most this many."""
-    return _lib().ntt_bb_active_clusters(p.c_log, p.threads, p.smem)
+    return _lib(_lib_name(F)).active_clusters(p.c_log, p.threads, p.smem)
 
 
-def _launch(x: torch.Tensor, r: int, p: Plan) -> torch.Tensor:
-    """The launches of plan ``p`` on the contiguous CUDA tensor x (..., n);
-    returns the output and the number of launches."""
+def _launch(x: torch.Tensor, r: int, p: Plan, F=bb) -> torch.Tensor:
+    """The launches of plan ``p`` on the contiguous CUDA tensor x (..., n)
+    of field ``F``; returns the output and the number of launches."""
     from . import _build
 
     n = x.shape[-1]
@@ -304,28 +338,39 @@ def _launch(x: torch.Tensor, r: int, p: Plan) -> torch.Tensor:
     batch = x.numel() // n
     out = torch.empty_like(x)
     index = x.get_device()
-    tw = _twiddles(n_log, index)
+    tw = _twiddles(n_log, index, F)
     stream = _build.stream_ptr(index)
-    lib = _lib()
+    name = _lib_name(F)
+    lib = _lib(name)
     if p.route == "cluster":
-        err = lib.ntt_bb_cluster(x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                                 batch, n_log, p.c_log, r, p.threads,
-                                 p.clusters, p.smem, stream)
-        _build.check(err, "ntt_bb_cluster")
+        err = lib.cluster(x.data_ptr(), out.data_ptr(), tw.data_ptr(), batch,
+                          n_log, p.c_log, r, p.threads, p.clusters, p.smem,
+                          stream)
+        _build.check(err, name + "_cluster")
         return out, 1
     if n_log - r < 10:
         raise ValueError(f"fft: rows of 2^{n_log} need at least 2^10 "
                          f"nonzero coefficients, got zero_prefix_log {r}")
-    err = lib.ntt_bb_bitrev(x.data_ptr(), out.data_ptr(), batch, n_log, r,
-                            stream)
-    _build.check(err, "ntt_bb_bitrev")
-    passes = ntt.pass_plan(n_log, LOG_TILE)
-    fn = ntt.pass_fn("ntt_bb")
+    err = lib.bitrev(x.data_ptr(), out.data_ptr(), batch, n_log, r, stream)
+    _build.check(err, name + "_bitrev")
+    passes = ntt.pass_plan(n_log, _tile_log(F))
+    fn = ntt.pass_fn(name)
     for s0, s1 in passes:
         err = fn(out.data_ptr(), out.data_ptr(), tw.data_ptr(), batch, n_log,
-                 s0, s1, max(s0, r), 0, r, stream)
-        _build.check(err, "ntt_bb_pass")
+                 s0, s1, max(s0, r), stream)
+        _build.check(err, name + "_pass")
     return out, 1 + len(passes)
+
+
+def launch(x: torch.Tensor, zero_prefix_log: int, F=bb) -> torch.Tensor:
+    """The kernel launches of ``fft`` for the CUDA tensor x (..., n) of
+    field ``F``, as ``plan`` says; returns the output and the number of
+    launches."""
+    n = x.shape[-1]
+    batch = x.numel() // n
+    p = plan(batch, n.bit_length() - 1, _sms(x.get_device()),
+             zero_prefix_log, F)
+    return _launch(x.contiguous(), zero_prefix_log, p, F)
 
 
 def fft(x: torch.Tensor, zero_prefix_log: int = 0) -> torch.Tensor:
@@ -341,10 +386,8 @@ def fft(x: torch.Tensor, zero_prefix_log: int = 0) -> torch.Tensor:
         raise ValueError(f"fft: zero_prefix_log {zero_prefix_log} outside "
                          f"[0, {n_log}]")
     if x.is_cuda:
-        batch = x.numel() // n
-        record("ntt_bb", batch, n, zero_prefix_log)
-        p = plan(batch, n_log, _sms(x.get_device()), zero_prefix_log)
-        out, k = _launch(x.contiguous(), zero_prefix_log, p)
+        record("ntt_bb", x.numel() // n, n, zero_prefix_log)
+        out, k = launch(x, zero_prefix_log)
         launches += k
         return out
     return fft_plain(x, zero_prefix_log)

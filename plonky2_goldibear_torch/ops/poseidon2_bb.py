@@ -9,8 +9,11 @@ the permutation is bound by integer multiplies (785 Montgomery products
 per 64 bytes of state in and out).  The permutation and the sponge keep a
 state in 16 registers of one thread for the whole permutation (and, in
 the sponge, across all absorbs of a leaf), with the round constants in
-constant memory.  The wide Merkle levels hold a state in one thread or a
-group of 4; the narrow ones run as subtrees, one block each, 16 threads
+constant memory.  The sponge holds a state in a group of 1, 4 or 16
+threads across all absorbs of its leaf, the group chosen per launch by
+``sponge_plan`` (one thread where the leaves fill the card, more for the
+narrow FRI layers).  The wide Merkle levels hold a state in one thread or
+a group of 4; the narrow ones run as subtrees, one block each, 16 threads
 a parent, the top ones one block per cap node; ``group_for`` and
 ``merkle_plan`` pick the launches from the number of states and SMs (see
 the note in the source).
@@ -169,21 +172,32 @@ FILL_PER_SM = 128           # threads per SM below which a level takes a
                             # larger group (one warp per scheduler)
 SUBTREE_GROUP = 16          # threads per parent in a subtree launch
 SUBTREE_MAX_LAYERS = 5      # levels a subtree launch folds; the source's
+SPONGE_GROUPS = (1, 4, 16)  # threads per state the sponge is built for
+SPONGE_FILL_PER_SM = 64     # as FILL_PER_SM, for the sponge's groups
 
 
-def group_for(states: int, sms: int) -> int:
-    """Threads per state for a level of ``states`` permutations: the fewest
-    that still give FILL_PER_SM threads to every SM."""
-    for g in GROUPS:
-        if states * g >= FILL_PER_SM * sms:
+def group_for(states: int, sms: int, groups=GROUPS,
+              fill: int = FILL_PER_SM) -> int:
+    """Threads per state for a launch of ``states`` permutations: the
+    fewest of ``groups`` that still give ``fill`` threads to every SM, else
+    the most."""
+    for g in groups:
+        if states * g >= fill * sms:
             return g
-    return GROUPS[-1]
+    return groups[-1]
 
 
 def block_for(threads: int, sms: int) -> int:
     """Threads per block: 128, fewer (down to one warp) where that spreads
     the launch over more SMs."""
     return min(128, max(32, threads // sms // 32 * 32))
+
+
+@lru_cache(maxsize=256)
+def sponge_plan(n: int, sms: int) -> Tuple[int, int]:
+    """(threads per state, threads per block) of the sponge of n leaves."""
+    g = group_for(n, sms, SPONGE_GROUPS, SPONGE_FILL_PER_SM)
+    return g, block_for(n * g, sms)
 
 
 @lru_cache(maxsize=256)
@@ -264,7 +278,10 @@ def _lib(device):
         _build.check(err, "poseidon2_bb_set_constants")
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.poseidon2_bb_permute.argtypes = [vp, vp, ll, vp]
-        lib.poseidon2_bb_leaf_sponge.argtypes = [vp, vp, ll, i32, i32, vp]
+        lib.poseidon2_bb_leaf_sponge.argtypes = [vp, vp, ll] + [i32] * 4 + \
+            [vp]
+        lib.poseidon2_bb_leaf_sponge_noload.argtypes = \
+            lib.poseidon2_bb_leaf_sponge.argtypes
         lib.poseidon2_bb_merkle_level.argtypes = [vp, vp, ll, i32, i32, vp]
         lib.poseidon2_bb_merkle_subtree.argtypes = [vp, vp, i32, i32, vp]
         assert lib.poseidon2_bb_subtree_max_layers() == SUBTREE_MAX_LAYERS
@@ -316,26 +333,43 @@ def hash_leaves(inputs: torch.Tensor,
                 num_outputs: int = NUM_HASH_OUT) -> torch.Tensor:
     """Sponge of each leaf row (n, L) -> (n, num_outputs) as
     ``hash_leaves_plain``: L >= 1, num_outputs <= 16.  All absorbs of a row
-    run in one thread (the JAX package launches one permutation per
-    absorb); the output is the same."""
-    if inputs.ndim != 2 or inputs.shape[1] == 0 or num_outputs > WIDTH:
-        raise ValueError(f"hash_leaves needs (n, L>0) rows and at most "
+    run in one group of threads, its size from ``sponge_plan`` (the JAX
+    package launches one permutation per absorb); the output is the
+    same."""
+    if inputs.ndim != 2 or inputs.shape[1] == 0 or not \
+            1 <= num_outputs <= WIDTH:
+        raise ValueError(f"hash_leaves needs (n, L>0) rows and 1 to "
                          f"{WIDTH} outputs, got {tuple(inputs.shape)}, "
                          f"{num_outputs}")
     if _on_cpu(inputs, "hash_leaves"):
         return hash_leaves_plain(inputs, num_outputs)
-    from . import _build
-
     inputs = inputs.contiguous()
     _check_cuda(inputs, "hash_leaves")
     n, length = inputs.shape
     record("p2_leaf_sponge", n, length, num_outputs)
+    return _sponge(inputs, num_outputs,
+                   *sponge_plan(n, _sms(inputs.get_device())))
+
+
+def _sponge(inputs: torch.Tensor, num_outputs: int, group: int,
+            threads: int, loads: bool = True) -> torch.Tensor:
+    """The sponge launch of ``group`` threads a state and ``threads`` a
+    block on the contiguous CUDA rows (n, L).  ``loads`` False launches
+    the probe build that absorbs made-up values in place of the rows'
+    (its output is no hash of them; it is not counted)."""
+    from . import _build
+
+    n, length = inputs.shape
+    index = inputs.get_device()
     out = torch.empty((n, num_outputs), dtype=bb.DTYPE, device=inputs.device)
-    err = _lib(inputs.device).poseidon2_bb_leaf_sponge(
-        inputs.data_ptr(), out.data_ptr(), n, length, num_outputs,
-        _build.stream_ptr(inputs.device))
+    lib = _lib(index)
+    fn = lib.poseidon2_bb_leaf_sponge if loads else \
+        lib.poseidon2_bb_leaf_sponge_noload
+    err = fn(inputs.data_ptr(), out.data_ptr(), n, length, num_outputs,
+             group, threads, _build.stream_ptr(index))
     _build.check(err, "poseidon2_bb_leaf_sponge")
-    launches["p2_leaf_sponge"] += 1
+    if loads:
+        launches["p2_leaf_sponge"] += 1
     return out
 
 

@@ -48,9 +48,16 @@ FIELDS = {
 }
 
 
-def fixture_path(degree_bits: int, field: str = "goldilocks") -> str:
+def fixture_path(degree_bits: int, field: str = "goldilocks",
+                 retry: bool = False) -> str:
+    """The arithmetic-chain fixture of ``field``; with ``retry``, the
+    companion file of its permutation-argument retry (the nonrandom
+    counter, the redrawn values of the random wire and the JAX retry
+    proof)."""
     tag = "" if field == "goldilocks" else "bb_"
-    return os.path.join(DATA_DIR, f"arith_chain_{tag}2e{degree_bits}.npz")
+    suffix = "_retry" if retry else ""
+    return os.path.join(DATA_DIR,
+                        f"arith_chain_{tag}2e{degree_bits}{suffix}.npz")
 
 
 @dataclass

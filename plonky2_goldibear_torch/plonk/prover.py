@@ -17,6 +17,7 @@ import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .. import device as devmod
@@ -25,6 +26,7 @@ from ..field import host
 from ..fri import prover as fri_prover
 from ..fri.oracle import PolynomialBatch
 from ..hash.challenger import Challenger
+from ..iop.generator import Rng, rand_field_element
 from . import vanishing
 from .proof import OpeningSet, Proof, ProofWithPublicInputs
 
@@ -46,13 +48,14 @@ def _phase(timings: Optional[Dict[str, float]], name: str, device):
 
 
 def prove(circuit, device=None, timings: Optional[Dict[str, float]] = None,
-          generator: Optional[torch.Generator] = None
-          ) -> ProofWithPublicInputs:
+          rng: Optional[Rng] = None) -> ProofWithPublicInputs:
     """Prove ``circuit`` (a ``circuit_data.Circuit``) on ``device`` (the
     card unless the caller asks for the CPU).  On a permutation-argument
     division by zero the random wire of the public-input gate is drawn
-    again from ``generator`` and the proof retried (reference
-    prover.rs:136-230, the anti-#456 loop)."""
+    again, ``rand_field_element(p, rng)`` (``iop/generator.py``: a
+    ``NonRandomRng`` for the reference's deterministic draws, else a numpy
+    generator, fresh from the OS when none is given), and the proof
+    retried (reference prover.rs:136-230, the anti-#456 loop)."""
     dev = devmod.resolve(device)
     if dev != circuit.device:
         raise ValueError(f"circuit was loaded on {circuit.device}, "
@@ -62,11 +65,12 @@ def prove(circuit, device=None, timings: Optional[Dict[str, float]] = None,
         if retry:
             assert circuit.random_wire is not None, \
                 "perm-arg failure with no random wire"
+            if rng is None:
+                rng = np.random.default_rng()
             row, col = circuit.random_wire
             wires = wires.clone()
             wires[col, row] = circuit.F.from_ints(
-                [int(torch.randint(0, 1 << 62, (), generator=generator))],
-                circuit.device)[0]
+                [rand_field_element(circuit.F.P, rng)], circuit.device)[0]
         try:
             return _internal_prove(circuit, wires, timings)
         except InvZeroPermArg:

@@ -3,7 +3,8 @@ operation, from a long dependent chain of it (``ops/probes.py``).
 
     python -m plonky2_goldibear_torch.probes [section ...] [--device cpu]
     python -m plonky2_goldibear_torch.probes sass [--sass-lib PATH ...]
-    python -m plonky2_goldibear_torch.probes poseidon2_groups ntt_bb_clusters
+    python -m plonky2_goldibear_torch.probes poseidon2_groups ntt_bb_clusters \
+        ntt_gl_clusters
 
 Sections, named after the TPU probe scripts' own, and the script function
 each one replaces:
@@ -38,20 +39,21 @@ prints one JSON line: G ops/s and ns per op per thread at each size, the
 latter the time one thread spends on one rep: the time of a rep times the
 share of the elements resident at once (SMs x 2048 threads).
 
-``sass`` disassembles the built ``probes`` and ``poseidon_gl`` libraries
-(``cuobjdump -sass``) and prints, per chain, the instructions of one step
-in the main loop (its body over the steps it holds), and per Poseidon
-kernel its instruction count and one thread's instructions through the
-rounds of a permutation, split by opcode (``per_permutation``), for this
-tree's build and any library given with ``--sass-lib`` (another tree's
-build).
+``sass`` disassembles the built ``probes``, ``poseidon_gl`` and
+``poseidon2_bb`` libraries (``cuobjdump -sass``) and prints, per chain,
+the instructions of one step in the main loop (its body over the steps it
+holds), and per Poseidon or Poseidon2 kernel its instruction count and,
+where its rounds are loops, one thread's instructions through the rounds
+of a permutation, split by opcode (``per_permutation``), for this tree's
+build and any library given with ``--sass-lib`` (another tree's build).
 
-``poseidon_groups``, ``poseidon2_groups`` and ``ntt_bb_clusters`` (card
-only) time the launch geometries the wrappers choose between, as CUDA-
-graph replays (device time without the wrappers' host time): every group
-size per Merkle level width and the tail per depth (Poseidon-GL, Poseidon2-
-BB), and every cluster size of the BabyBear NTT at each NTT shape of a
-BabyBear prove.
+``poseidon_groups``, ``poseidon2_groups``, ``ntt_bb_clusters`` and
+``ntt_gl_clusters`` (card only) time the launch geometries the wrappers
+choose between, as CUDA-graph replays (device time without the wrappers'
+host time): every group size per Merkle level width, the tail per depth
+and the leaf sponge per shape of a prove (Poseidon-GL, Poseidon2-BB; the
+Poseidon2-BB sponge also without its row loads), and every cluster size
+of each field's NTT at each NTT shape of its prove.
 
 Runs on the card unless ``--device cpu`` is given (plain torch versions,
 host clock, cut sizes: a rehearsal, not a device measurement); without a
@@ -112,6 +114,13 @@ BB_SUBTREES = (16, 256)            # subtrees a subtree launch folds
 BB_NTT_SHAPES = ((167, 12, 0), (167, 15, 3), (36, 12, 0), (36, 15, 3),
                  (6, 15, 0), (48, 15, 3), (4, 15, 0), (4, 12, 0), (4, 9, 0),
                  (4, 6, 0), (1, 15, 0), (1, 12, 0))
+# the NTT calls of a Goldilocks 2^12 prove (batch, log2 n, zero prefix)
+GL_NTT_SHAPES = ((135, 12, 0), (135, 15, 3), (20, 12, 0), (20, 15, 3),
+                 (2, 15, 0), (16, 15, 3), (2, 11, 0), (2, 7, 0), (1, 15, 0))
+# the BabyBear leaf sponges of a 2^12 prove: wires, Z and partial products,
+# quotient, the three FRI layers (leaves, leaf length)
+BB_SPONGES = ((1 << 15, 167), (1 << 15, 36), (1 << 15, 48), (1 << 12, 32),
+              (1 << 9, 32), (1 << 6, 32))
 MIN_LAUNCH_S = 2e-3        # r doubles until one launch takes this long
 MAX_REPS = 1 << 24
 TRIALS = 5
@@ -309,34 +318,60 @@ def run_poseidon2_groups(dev: torch.device) -> Dict:
         rec["trees"][f"{n}x{layers}"] = {
             "plan": P.merkle_plan(n, layers, sms),
             "ms": _graph_ms(lambda: P.merkle_levels(d, layers), dev)}
+    # the leaf sponge at each group size, and at the planned one without
+    # its row loads
+    rec["sponge"], rec["sponge_noload"] = {}, {}
+    for n, length in BB_SPONGES:
+        leaves = rand(n, length)
+        key = f"{n}x{length}"
+        rec["sponge"][key] = {
+            g: _graph_ms(lambda: P._sponge(leaves, 8, g, P.block_for(
+                n * g, sms)), dev) for g in P.SPONGE_GROUPS}
+        g, threads = P.sponge_plan(n, sms)
+        rec["sponge"][key]["plan"] = g
+        rec["sponge_noload"][key] = _graph_ms(
+            lambda: P._sponge(leaves, 8, g, threads, loads=False), dev)
+    return rec
+
+
+def _ntt_clusters(dev: torch.device, section: str, F, shapes) -> Dict:
+    """Device ms of the NTT of field module F at each (batch, log2 n, zero
+    prefix) of ``shapes`` for every cluster size the row allows, and the
+    one ``ops/ntt_bb.py:plan`` picks: the data behind the plan."""
+    from .ops import ntt_bb as N
+
+    _needs_card(dev, section)
+    rng = np.random.default_rng(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rec = {"section": section, "device": dev.type, "card": card_name(dev),
+           "shapes": {}}
+    for batch, n_log, r in shapes:
+        x = rng.integers(0, F.P, size=(batch, 1 << n_log), dtype=np.uint64)
+        x[:, (1 << n_log) >> r:] = 0
+        x = F.from_ints(x, dev)
+        plans = {c: N.cluster_plan(batch, n_log, c, sms, r, F)
+                 for c in N.cluster_logs(n_log, r, F)}
+        rec["shapes"][f"{batch}x2^{n_log}_r{r}"] = {
+            "plan": N.plan(batch, n_log, sms, r, F).c_log,
+            "active_clusters": {c: N.active_clusters(p, F)
+                                for c, p in plans.items()},
+            "ms": {c: _graph_ms(lambda: N._launch(x, r, p, F), dev)
+                   for c, p in plans.items()}}
     return rec
 
 
 def run_ntt_bb_clusters(dev: torch.device) -> Dict:
-    """Section ``ntt_bb_clusters`` (card only): device ms of the BabyBear
-    NTT at each shape of BB_NTT_SHAPES for every cluster size the row
-    allows, and the one ``ops/ntt_bb.py:plan`` picks: the data behind
-    the plan."""
+    """Section ``ntt_bb_clusters`` (card only): the BabyBear NTT at each
+    shape of BB_NTT_SHAPES (``_ntt_clusters``)."""
     from .field import bb
-    from .ops import ntt_bb as N
 
-    _needs_card(dev, "ntt_bb_clusters")
-    rng = np.random.default_rng(0)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rec = {"section": "ntt_bb_clusters", "device": dev.type,
-           "card": card_name(dev), "shapes": {}}
-    for batch, n_log, r in BB_NTT_SHAPES:
-        x = rng.integers(0, bb.P, size=(batch, 1 << n_log), dtype=np.uint64)
-        x[:, (1 << n_log) >> r:] = 0
-        x = bb.from_ints(x, dev)
-        rec["shapes"][f"{batch}x2^{n_log}_r{r}"] = {
-            "plan": N.plan(batch, n_log, sms, r).c_log,
-            "active_clusters": {c: N.active_clusters(N.cluster_plan(
-                batch, n_log, c, sms, r)) for c in N.cluster_logs(n_log, r)},
-            "ms": {c: _graph_ms(lambda: N._launch(
-                x, r, N.cluster_plan(batch, n_log, c, sms, r)), dev)
-                for c in N.cluster_logs(n_log, r)}}
-    return rec
+    return _ntt_clusters(dev, "ntt_bb_clusters", bb, BB_NTT_SHAPES)
+
+
+def run_ntt_gl_clusters(dev: torch.device) -> Dict:
+    """Section ``ntt_gl_clusters`` (card only): the Goldilocks NTT at each
+    shape of GL_NTT_SHAPES (``_ntt_clusters``)."""
+    return _ntt_clusters(dev, "ntt_gl_clusters", gl, GL_NTT_SHAPES)
 
 
 def run_matmul(section: str, dev: torch.device) -> Dict:
@@ -418,8 +453,9 @@ def _cuobjdump(path: str) -> str:
 
 
 _SPLIT = ("IMAD.WIDE", "IMAD", "IADD3", "ISETP", "SEL", "LOP3", "SHF",
-          "SHFL")
-ROUND_TRIPS = (4, 22, 4)     # full, partial, full rounds
+          "SHFL", "IMNMX", "LDC")
+# full, partial, full rounds of a library's permutation loops
+ROUND_TRIPS = {"poseidon_gl": (4, 22, 4), "poseidon2_bb": (4, 13, 4)}
 
 
 def _split(insn: str) -> str:
@@ -435,13 +471,15 @@ def _split(insn: str) -> str:
     return op if op in _SPLIT else "other"
 
 
-def per_permutation(code: List) -> Dict:
-    """One thread's instructions through the rounds of a Poseidon-GL kernel,
-    from its SASS: the three innermost loops of 100 or more instructions,
-    in address order, are the round loops (4 full, 22 partial, 4 full
-    rounds), each counted times its trips, and every other instruction
-    outside them once (loads, stores, set-up).  None where the kernel has
-    not that shape."""
+def per_permutation(code: List, trips=ROUND_TRIPS["poseidon_gl"]) -> Dict:
+    """One thread's instructions through the rounds of a Poseidon-GL or
+    Poseidon2-BB kernel, from its SASS: the three innermost loops of 100
+    or more instructions, in address order, are the round loops (full,
+    partial, full rounds: ``trips``, 4, 22, 4 for Poseidon-GL, 4, 13, 4 for
+    Poseidon2-BB), each counted times its trips, and every other
+    instruction outside them once (loads, stores, set-up; in a sponge the
+    absorb's loads).  None where the kernel has not that shape (a group's
+    unrolled rounds)."""
     inner = [b for b in loops(code) if len(b) >= 100 and not any(
         o is not b and len(o) < len(b) and o[0][0] >= b[0][0]
         and o[-1][0] <= b[-1][0] for o in loops(code))]
@@ -453,23 +491,31 @@ def per_permutation(code: List) -> Dict:
     for _, insn in code:
         split[_split(insn)] += 1
     total = len(code)
-    for body, trips in zip(inner, ROUND_TRIPS):
-        total += (trips - 1) * len(body)
+    for body, n in zip(inner, trips):
+        total += (n - 1) * len(body)
         for _, insn in body:
-            split[_split(insn)] += trips - 1
+            split[_split(insn)] += n - 1
     return {"instructions": total, "round_loops": [len(b) for b in inner],
             "straight": len(code) - len(in_loop), "split": split}
 
 
+def _library_of(path: str) -> str:
+    """The source library a built library's name says it is."""
+    return "poseidon2_bb" if "poseidon2_bb" in os.path.basename(path) \
+        else "poseidon_gl"
+
+
 def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
-    """Instruction counts of the chain steps and the Poseidon-GL kernels
-    from the built libraries' SASS; the listings go to dump_dir if given.
-    ``libs`` adds other built Poseidon-GL libraries (another tree's)."""
+    """Instruction counts of the chain steps and the Poseidon-GL and
+    Poseidon2-BB kernels from the built libraries' SASS; the listings go
+    to dump_dir if given.  ``libs`` adds other built Poseidon-GL or
+    Poseidon2-BB libraries (another tree's; the file name says which)."""
     from .ops import _build
 
-    _build.build_all(("probes", "poseidon_gl"))
+    _build.build_all(("probes", "poseidon_gl", "poseidon2_bb"))
     paths = {"probes": _build._lib_path("probes"),
-             "poseidon_gl": _build._lib_path("poseidon_gl")}
+             "poseidon_gl": _build._lib_path("poseidon_gl"),
+             "poseidon2_bb": _build._lib_path("poseidon2_bb")}
     for path in libs or ():
         paths[path] = path
     out = {"chains": {}}
@@ -495,7 +541,8 @@ def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
                 out.setdefault(name, {})[func] = {
                     "instructions": len(code),
                     "loops": [len(b) for b in loops(code)],
-                    "per_permutation": per_permutation(code),
+                    "per_permutation": per_permutation(
+                        code, ROUND_TRIPS[_library_of(path)]),
                     "opcodes": _histogram(code)}
     return out
 
@@ -503,7 +550,8 @@ def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
 # the card-only sweeps of the kernels' launch geometry
 GEOMETRY = {"poseidon_groups": run_groups,
             "poseidon2_groups": run_poseidon2_groups,
-            "ntt_bb_clusters": run_ntt_bb_clusters}
+            "ntt_bb_clusters": run_ntt_bb_clusters,
+            "ntt_gl_clusters": run_ntt_gl_clusters}
 
 
 def main(argv=None) -> int:
@@ -513,7 +561,7 @@ def main(argv=None) -> int:
     ap.add_argument("sections", nargs="*",
                     help=f"of {list(SECTIONS) + list(MATMULS)} "
                          "sass poseidon_groups poseidon2_groups "
-                         "ntt_bb_clusters "
+                         "ntt_bb_clusters ntt_gl_clusters "
                          "(default: every chain section)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain torch, cut sizes)")
@@ -521,7 +569,7 @@ def main(argv=None) -> int:
                     help="with sass: write the listings here")
     ap.add_argument("--sass-lib", action="append", default=[],
                     help="with sass: also count this built Poseidon-GL "
-                         "library (repeatable)")
+                         "or Poseidon2-BB library (repeatable)")
     args = ap.parse_args(argv)
     names = args.sections or list(SECTIONS)
     for name in names:

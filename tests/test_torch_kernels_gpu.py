@@ -169,6 +169,38 @@ def test_ntt_bb_plan(cuda, batch, n_log, r):
     assert torch.equal(got, ntt_bb.fft_plain(x, r))
 
 
+# every cluster size at each NTT shape of a Goldilocks 2^12 prove
+_GL_NTT_SHAPES = [(135, 12, 0), (135, 15, 3), (20, 12, 0), (20, 15, 3),
+                  (2, 15, 0), (16, 15, 3), (2, 11, 0), (2, 7, 0), (1, 15, 0)]
+
+
+@pytest.mark.parametrize("batch,n_log,r,c_log", [
+    (b, n, r, c) for b, n, r in _GL_NTT_SHAPES
+    for c in ntt_bb.cluster_logs(n, r, gl)])
+def test_ntt_gl_each_cluster_size(cuda, batch, n_log, r, c_log):
+    x = _rand(cuda, batch, 1 << n_log, seed=n_log + c_log)
+    x[:, (1 << n_log) >> r:] = 0
+    x[0, :(1 << n_log) >> r] = gl.from_ints([gl.P - 1], cuda)
+    p = ntt_bb.cluster_plan(batch, n_log, c_log, 132, r, gl)
+    got, launched = ntt_bb._launch(x, r, p, gl)
+    assert launched == 1
+    assert torch.equal(got, ntt.fft_plain(x, r))
+
+
+@pytest.mark.parametrize("batch,n_log,r", _GL_NTT_SHAPES + [
+    (2, 16, 0), (1, 17, 3), (3, 5, 2), (2, 2, 0)])
+def test_ntt_gl_plan(cuda, batch, n_log, r):
+    """The launch ``plan`` picks for Goldilocks (one cluster launch up to
+    2^15; the bit-reversal and the passes of 2^12 above)."""
+    x = _rand(cuda, batch, 1 << n_log, seed=batch + n_log)
+    x[:, (1 << n_log) >> r:] = 0
+    ntt.reset_launches()
+    got = ntt.fft(x, r)
+    assert ntt.launches == (1 if n_log <= ntt_bb.CLUSTER_MAX_LOG else
+                            1 + len(ntt.pass_plan(n_log, ntt.LOG_TILE)))
+    assert torch.equal(got, ntt.fft_plain(x, r))
+
+
 @pytest.mark.parametrize("n", [1, 7, 1000, 1 << 17])
 def test_poseidon2_bb_permute_kernel(cuda, n):
     s = _rand_bb(cuda, n, 16, seed=n)
@@ -180,6 +212,20 @@ def test_poseidon2_bb_permute_kernel(cuda, n):
 def test_poseidon2_bb_leaf_sponge_kernel(cuda, n, length):
     s = _rand_bb(cuda, n, length, seed=length)
     assert torch.equal(K2.hash_leaves(s), K2.hash_leaves_plain(s))
+
+
+@pytest.mark.parametrize("group", K2.SPONGE_GROUPS)
+@pytest.mark.parametrize("n,length,num_out", [
+    (1 << 15, 167, 8), (1 << 15, 36, 8), (1 << 15, 48, 8), (1 << 12, 32, 8),
+    (1 << 9, 32, 8), (1 << 6, 32, 8), (77, 9, 16), (5, 1, 3)])
+def test_poseidon2_bb_leaf_sponge_each_group(cuda, group, n, length,
+                                             num_out):
+    """Every group size at each sponge shape of a BabyBear 2^12 prove and
+    at ragged ones; rows of all p - 1 among them."""
+    s = _rand_bb(cuda, n, length, seed=length + group)
+    s[-1] = bb.from_ints([bb.P - 1], cuda)
+    got = K2._sponge(s, num_out, group, K2.block_for(n * group, 132))
+    assert torch.equal(got, K2.hash_leaves_plain(s, num_out))
 
 
 @pytest.mark.parametrize("n,layers", [(16, 4), (1024, 6), (1 << 15, 11)])

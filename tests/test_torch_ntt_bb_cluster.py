@@ -41,9 +41,11 @@ SOURCE = os.path.join(_build.CSRC, "ntt_bb.cu")
 H100_SMS = 132
 
 
-def _source() -> str:
-    with open(SOURCE) as f:
-        return f.read()
+def _source(path: str = SOURCE) -> str:
+    """The source and the cluster header it instantiates."""
+    with open(path) as f, open(os.path.join(_build.CSRC,
+                                            "ntt_cluster.cuh")) as g:
+        return f.read() + g.read()
 
 
 def _rows(seed, batch, n_log, r):
@@ -143,6 +145,10 @@ inline unsigned long long __brevll(unsigned long long x) {
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned long long)a * b >> 32;
 }
+inline unsigned long long __umul64hi(unsigned long long a,
+                                     unsigned long long b) {
+  return (unsigned __int128)a * b >> 64;
+}
 extern thread_local std::barrier<>* g_block_bar;
 inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
 """
@@ -150,7 +156,7 @@ inline void __syncthreads() { g_block_bar->arrive_and_wait(); }
 _CG_STUB = r"""
 #pragma once
 #include "cuda_runtime.h"
-struct ClusterEmu { std::barrier<>* bar; uint32_t** smem; unsigned rank; };
+struct ClusterEmu { std::barrier<>* bar; void** smem; unsigned rank; };
 extern thread_local ClusterEmu g_cluster;
 namespace cooperative_groups {
 struct cluster_group {
@@ -166,9 +172,11 @@ inline cluster_group this_cluster() { return {}; }
 """
 
 # every block of one cluster at once, clusters one after another; or, with
-# "passes", the bit-reversal launch and the passes, block after block
+# "passes", the bit-reversal launch and the passes, block after block.
+# FIELD is the source's field struct (BB or GL), W its word.
 _HARNESS = r"""
-#include "ntt_bb_host.cpp"
+#include "cuda_runtime.h"
+#include "ntt_host.cpp"
 #include <cstdio>
 #include <cstdlib>
 #include <memory>
@@ -195,26 +203,39 @@ template <class F> void run_blocks(long long blocks, int threads, F body) {
     for (auto& x : th) x.join();
   }
 }
+using W = FIELD::T;
+constexpr int LOG_TILE = FIELD::LOG_TILE;
+bool read(std::vector<W>& v) {
+  for (auto& x : v) {
+    unsigned long long y;
+    if (scanf("%llu", &y) != 1) return false;
+    x = W(y);
+  }
+  return true;
+}
+void write(const std::vector<W>& v) {
+  for (auto x : v) printf("%llu ", (unsigned long long)x);
+  printf("\n");
+}
 int passes(char** argv) {
   const int n_log = atoi(argv[2]), r = atoi(argv[3]);
   const long long batch = atoll(argv[4]), n = 1LL << n_log;
-  std::vector<uint32_t> tw(n - 1), in(batch * n), out(batch * n, 0);
-  for (auto& x : tw) if (scanf("%u", &x) != 1) return 1;
-  for (auto& x : in) if (scanf("%u", &x) != 1) return 1;
-  run_blocks(batch << (n_log - r - 10), 256,
-             [&] { bitrev_kernel(in.data(), out.data(), n_log, r); });
+  std::vector<W> tw(n - 1), in(batch * n), out(batch * n, 0);
+  if (!read(tw) || !read(in)) return 1;
+  run_blocks(batch << (n_log - r - 10), 256, [&] {
+    ntt_cluster::bitrev_kernel<W>(in.data(), out.data(), n_log, r);
+  });
   for (int s0 = 0; s0 < n_log; s0 += LOG_TILE) {
     const int s1 = s0 + LOG_TILE < n_log ? s0 + LOG_TILE : n_log;
     const int tile_log = n_log < LOG_TILE ? n_log : LOG_TILE;
     int threads = (1 << tile_log) / 2;
     if (threads > ntt::MAX_THREADS) threads = ntt::MAX_THREADS;
     run_blocks(batch << (n_log - tile_log), threads, [&] {
-      ntt::pass_kernel<BB, LOG_TILE>(out.data(), out.data(), tw.data(), n_log,
-                                     s0, s1, s0 > r ? s0 : r, 0, r);
+      ntt::pass_kernel<FIELD, LOG_TILE>(out.data(), out.data(), tw.data(),
+                                        n_log, s0, s1, s0 > r ? s0 : r);
     });
   }
-  for (auto x : out) printf("%u ", x);
-  printf("\n");
+  write(out);
   return 0;
 }
 int main(int argc, char** argv) {
@@ -224,19 +245,18 @@ int main(int argc, char** argv) {
   const int clusters = atoi(argv[5]), threads = atoi(argv[6]);
   const long long n = 1LL << n_log;
   const int C = 1 << c_log;
-  std::vector<uint32_t> tw(n - 1), in(batch * n), out(batch * n, 0);
-  for (auto& x : tw) if (scanf("%u", &x) != 1) return 1;
-  for (auto& x : in) if (scanf("%u", &x) != 1) return 1;
+  std::vector<W> tw(n - 1), in(batch * n), out(batch * n, 0);
+  if (!read(tw) || !read(in)) return 1;
   gridDim = dim3(clusters * C);
   blockDim = dim3(threads);
   for (int cid = 0; cid < clusters; ++cid) {
     std::barrier<> cbar(C * threads);
     std::vector<std::unique_ptr<std::barrier<>>> bbar;
-    std::vector<std::vector<uint32_t>> smem;
-    std::vector<uint32_t*> ptrs;
+    std::vector<std::vector<W>> smem;
+    std::vector<W*> ptrs;
     for (int b = 0; b < C; ++b) {
       bbar.emplace_back(new std::barrier<>(threads));
-      smem.emplace_back(smem_words(n_log, c_log, r));
+      smem.emplace_back(ntt_cluster::smem_words(n_log, c_log, r));
     }
     for (auto& v : smem) ptrs.push_back(v.data());
     std::vector<std::thread> th;
@@ -246,40 +266,53 @@ int main(int argc, char** argv) {
           threadIdx = dim3(t);
           blockIdx = dim3(cid * C + b);
           g_block_bar = bbar[b].get();
-          g_cluster = ClusterEmu{&cbar, ptrs.data(), unsigned(b)};
-          ntt_cluster_body(ptrs[b], in.data(), out.data(), tw.data(), batch,
-                           n_log, c_log, r);
+          g_cluster = ClusterEmu{&cbar, (void**)ptrs.data(), unsigned(b)};
+          ntt_cluster::ntt_cluster_body<FIELD>(ptrs[b], in.data(), out.data(),
+                                              tw.data(), batch, n_log, c_log,
+                                              r);
         });
     for (auto& x : th) x.join();
   }
-  for (auto x : out) printf("%u ", x);
-  printf("\n");
+  write(out);
 }
 """
+
+
+def _for_host(text: str) -> str:
+    """CUDA source as host C++: launches dropped, dynamic shared memory an
+    ordinary array."""
+    return re.sub(r"<<<.*?>>>", "", text, flags=re.S).replace(
+        "extern __shared__", "extern")
+
+
+def build_harness(d, lib: str, field: str) -> str:
+    """The harness of ``csrc/<lib>.cu`` (its field struct ``field``), every
+    header of ``csrc/`` beside it, built in directory d; its path."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the device code for the host")
+    for name in os.listdir(_build.CSRC):
+        if name.endswith(".cuh"):
+            with open(os.path.join(_build.CSRC, name)) as f:
+                (d / name).write_text(_for_host(f.read()))
+    with open(os.path.join(_build.CSRC, lib + ".cu")) as f:
+        (d / "ntt_host.cpp").write_text(_for_host(f.read()))
+    (d / "cuda_runtime.h").write_text(_STUB)
+    (d / "cooperative_groups.h").write_text(_CG_STUB)
+    (d / "harness.cpp").write_text(_HARNESS)
+    exe = str(d / "harness")
+    subprocess.run([gxx, "-std=c++20", "-O1", "-w", "-pthread",
+                    f"-DFIELD={field}", "-I", str(d),
+                    str(d / "harness.cpp"), "-o", exe],
+                   check=True, capture_output=True, timeout=300)
+    return exe
 
 
 @pytest.fixture(scope="module")
 def host_binary(tmp_path_factory):
     """The harness built from the source as it is."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the device code for the host")
-    d = tmp_path_factory.mktemp("ntt_bb_host")
-    src = re.sub(r"<<<.*?>>>", "", _source(), flags=re.S).replace(
-        "extern __shared__", "extern")
-    with open(os.path.join(_build.CSRC, "ntt.cuh")) as f:     # the passes
-        (d / "ntt.cuh").write_text(re.sub(r"<<<.*?>>>", "", f.read(),
-                                          flags=re.S))
-    (d / "cuda_runtime.h").write_text(_STUB)
-    (d / "cooperative_groups.h").write_text(_CG_STUB)
-    (d / "ntt_bb_host.cpp").write_text(src)
-    (d / "harness.cpp").write_text(_HARNESS)
-    exe = str(d / "harness")
-    subprocess.run([gxx, "-std=c++20", "-O1", "-w", "-pthread",
-                    "-I", str(d), "-I", _build.CSRC,
-                    str(d / "harness.cpp"), "-o", exe],
-                   check=True, capture_output=True, timeout=300)
-    return exe
+    return build_harness(tmp_path_factory.mktemp("ntt_bb_host"), "ntt_bb",
+                         "BB")
 
 
 # (n_log, r, c_log, batch, clusters, threads): every cluster size, the
@@ -322,8 +355,8 @@ def test_device_passes_on_host(host_binary, n_log, r, batch):
 # -- the launch plan -------------------------------------------------------
 
 
-def _int(name: str) -> int:
-    m = re.search(rf"constexpr int {name} = (\d+);", _source())
+def _int(name: str, path: str = SOURCE) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);", _source(path))
     assert m, name
     return int(m.group(1))
 

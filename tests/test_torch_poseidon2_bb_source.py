@@ -7,7 +7,11 @@
 - The device code itself, compiled by the host C++ compiler against a stub
   of the CUDA runtime (a warp's shuffles by threads meeting at a barrier),
   runs the permutation for every group size (threads per state); each
-  equals ``permute_host`` bit for bit on seeded states.  They skip where no
+  equals ``permute_host`` bit for bit on seeded states.  It runs the leaf
+  sponge at every group size on seeded rows and rows of all p - 1 (the
+  edge the lazy reductions must survive), at the prove's leaf lengths and
+  around the rate; each equals ``hash_leaves_plain`` and the JAX
+  package's ``hash/poseidon2_bb.py:hash_no_pad``.  They skip where no
   ``g++`` is found.
 - ``merkle_plan`` and ``group_for`` cover every level of the trees of a
   BabyBear prove and spread each over the card; the kernels' constant
@@ -22,8 +26,14 @@ import re
 import shutil
 import subprocess
 
+from functools import lru_cache
+
 import numpy as np
 import pytest
+import torch
+
+from plonky2_goldibear_tpu.field import bb as jbb
+from plonky2_goldibear_tpu.hash import poseidon2_bb as jp2
 
 from plonky2_goldibear_torch import probes as runner
 from plonky2_goldibear_torch.field import bb
@@ -153,8 +163,26 @@ template <int G> void run(uint32_t st[16]) {
   for (auto& x : th) x.join();
   for (int i = 0; i < 16; ++i) st[i] = out[i];
 }
+// the leaf sponge: leaf i in "block" i of G threads, one block at a time
+template <int G>
+void sponge(const std::vector<uint32_t>& rows, std::vector<uint32_t>& out,
+            long long n, int len, int num_out) {
+  blockDim.x = G;
+  for (long long i = 0; i < n; ++i) {
+    blockIdx.x = unsigned(i);
+    std::barrier<> bar(G);
+    g_bar = &bar;
+    std::vector<std::thread> th;
+    for (int t = 0; t < G; ++t) th.emplace_back([&, t] {
+      threadIdx.x = t;
+      leaf_sponge_kernel<G, true>(rows.data(), out.data(), n, len, num_out);
+    });
+    for (auto& x : th) x.join();
+  }
+}
 int main(int argc, char** argv) {
-  const int g = atoi(argv[1]);
+  const bool leaves = argv[1][0] == 's';
+  const int g = atoi(argv[leaves ? 2 : 1]);
   uint32_t ext[8 * 16], in[13], scale[1], diag[16], pows[16 * 14], sums[13],
       s[16];
   for (auto& x : ext) if (scanf("%u", &x) != 1) return 1;
@@ -164,6 +192,18 @@ int main(int argc, char** argv) {
   for (auto& x : pows) if (scanf("%u", &x) != 1) return 1;
   for (auto& x : sums) if (scanf("%u", &x) != 1) return 1;
   poseidon2_bb_set_constants(ext, in, scale, diag, pows, sums);
+  if (leaves) {
+    const long long n = atoll(argv[3]);
+    const int len = atoi(argv[4]), num_out = atoi(argv[5]);
+    std::vector<uint32_t> rows(n * len), out(n * num_out);
+    for (auto& x : rows) if (scanf("%u", &x) != 1) return 1;
+    if (g == 1) sponge<1>(rows, out, n, len, num_out);
+    else if (g == 4) sponge<4>(rows, out, n, len, num_out);
+    else sponge<16>(rows, out, n, len, num_out);
+    for (auto x : out) printf("%u ", x);
+    printf("\n");
+    return 0;
+  }
   while (true) {
     for (auto& x : s) if (scanf("%u", &x) != 1) return 0;
     if (g == 1) run<1>(s); else if (g == 4) run<4>(s); else run<16>(s);
@@ -197,6 +237,12 @@ def _mont(vals) -> np.ndarray:
     return K._mont_array(vals)
 
 
+def _constants_text() -> str:
+    consts = [_mont(C.EXTERNAL_CONSTANTS), _mont(C.INTERNAL_CONSTANTS),
+              _mont([C.INTERNAL_SCALE]), K.scaled_diag(), *K.diag_powers()]
+    return "\n".join(" ".join(map(str, c.tolist())) for c in consts)
+
+
 @pytest.mark.parametrize("group", K.GROUPS + (K.SUBTREE_GROUP,))
 def test_device_permutation_on_host(host_binary, group):
     """Each group size the kernels are built for: the levels' (1, 4) and
@@ -204,17 +250,51 @@ def test_device_permutation_on_host(host_binary, group):
     rng = np.random.default_rng(group)
     states = rng.integers(0, H.P, size=(24, 16), dtype=np.uint64).tolist()
     states += [[H.P - 1] * 16, [0] * 16, list(range(16))]
-    consts = [_mont(C.EXTERNAL_CONSTANTS), _mont(C.INTERNAL_CONSTANTS),
-              _mont([C.INTERNAL_SCALE]), K.scaled_diag(), *K.diag_powers()]
-    text = "\n".join(" ".join(map(str, c.tolist())) for c in consts) + \
-        "\n" + "\n".join(" ".join(map(str, _mont(s).tolist()))
-                         for s in states)
+    text = _constants_text() + "\n" + "\n".join(
+        " ".join(map(str, _mont(s).tolist())) for s in states)
     out = subprocess.run([host_binary, str(group)], input=text,
                          capture_output=True, text=True, check=True,
                          timeout=120).stdout.split("\n")
     for state, line in zip(states, out):
         got = [int(x) * bb.RINV % bb.P for x in line.split()]
         assert got == H.permute_host(state)
+
+
+# the sponge's leaf lengths: one element, the rate and one past it, the FRI
+# leaves (32), the prove's Z / partial-product (36), quotient (48) and wire
+# (167) leaves
+SPONGE_LENGTHS = (1, 8, 9, 32, 36, 48, 167)
+
+
+@lru_cache(maxsize=None)
+def _sponge_case(length):
+    """Three seeded rows and one of all p - 1 (canonical), and the JAX
+    hash_no_pad of each."""
+    import jax
+
+    rows = np.random.default_rng(length).integers(
+        0, H.P, size=(4, length), dtype=np.uint64)
+    rows[3] = H.P - 1
+    ref = jbb.to_ints(jax.jit(jp2.hash_no_pad)(jbb.from_ints(rows)))
+    return rows, np.asarray(ref, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("length", SPONGE_LENGTHS)
+@pytest.mark.parametrize("group", K.SPONGE_GROUPS)
+def test_device_sponge_on_host(host_binary, group, length):
+    rows, ref = _sponge_case(length)
+    torch.set_num_threads(1)
+    plain = bb.to_ints(K.hash_leaves_plain(bb.from_ints(rows)))
+    np.testing.assert_array_equal(plain, ref)
+    text = _constants_text() + "\n" + " ".join(
+        map(str, _mont(rows).tolist()))
+    out = subprocess.run(
+        [host_binary, "sponge", str(group), str(len(rows)), str(length),
+         str(K.NUM_HASH_OUT)], input=text, capture_output=True, text=True,
+        check=True, timeout=120).stdout
+    got = (np.array(out.split(), dtype=np.uint64) * np.uint64(bb.RINV)
+           % np.uint64(bb.P)).reshape(ref.shape)
+    np.testing.assert_array_equal(got, ref)
 
 
 # -- launch geometry -------------------------------------------------------
@@ -280,3 +360,47 @@ def test_group_sweep_needs_the_card():
 
     with pytest.raises(ValueError, match="needs the card"):
         runner.run_poseidon2_groups(torch.device("cpu"))
+
+
+def test_sass_per_permutation_reader_poseidon2():
+    """A Poseidon2-BB library's round loops count 4, 13 and 4 trips; the
+    library is told by its file name."""
+    code, addr = [], 0
+
+    def emit(insn):
+        nonlocal addr
+        code.append((addr, insn))
+        addr += 16
+
+    emit("LDC R1, c[0x0][0x28]")
+    for body in (130, 105, 130):
+        start = addr
+        for i in range(body - 1):
+            emit("IMNMX.U32 R4, R2, R4, PT" if i % 2 else
+                 "IMAD.WIDE.U32 R4, R2, R3, R4")
+        emit(f"@P1 BRA 0x{start:x}")
+    emit("EXIT")
+    trips = runner.ROUND_TRIPS[runner._library_of(
+        "/x/libposeidon2_bb_0123456789ab.so")]
+    assert trips == (4, 13, 4)
+    assert runner._library_of("/x/libposeidon_gl_0123.so") == "poseidon_gl"
+    rec = runner.per_permutation(code, trips)
+    assert rec["round_loops"] == [130, 105, 130]
+    assert rec["instructions"] == len(code) + 3 * 130 + 12 * 105 + 3 * 130
+    assert rec["split"]["IMNMX"] == 64 * 4 + 52 * 13 + 64 * 4
+    assert sum(rec["split"].values()) == rec["instructions"]
+
+
+def test_sponge_plan_spreads_the_prove_sponges():
+    """The sponge's group: one thread where the leaves fill the card, more
+    for the narrow FRI layers; blocks of whole groups."""
+    for n in (1 << 15, 1 << 12, 1 << 9, 1 << 6, 5):
+        g, threads = K.sponge_plan(n, H100_SMS)
+        assert g in K.SPONGE_GROUPS
+        assert threads % 32 == 0 and 32 <= threads <= 128
+        assert g == K.group_for(n, H100_SMS, K.SPONGE_GROUPS,
+                                K.SPONGE_FILL_PER_SM)
+    assert K.sponge_plan(1 << 15, H100_SMS)[0] == 1
+    assert K.sponge_plan(1 << 6, H100_SMS)[0] == K.SPONGE_GROUPS[-1]
+    assert re.findall(r"case (\d+): return launch_sponge<", _source()) == [
+        str(g) for g in K.SPONGE_GROUPS]

@@ -308,7 +308,9 @@ def test_kernel_times_reads_the_report_shapes():
         "leaf_sponge_2^15x135": {"ms": 1.0},
         "prove_leaf_sponge_128_32_4": {"call": ["leaf_sponge", 128, 32, 4]},
         "prove_merkle_levels_2048_7": {"call": ["merkle_levels", 2048, 7]},
-        "prove_ntt_1_128_0": {"call": ["ntt", 1, 128, 0]}}}
-    assert kernel_times.shapes_of(report) == [("leaf_sponge", 128, 32, 4),
-                                              ("merkle_levels", 2048, 7)]
+        "prove_ntt_1_128_0": {"call": ["ntt", 1, 128, 0]},
+        "prove_permute_64": {"call": ["permute", 64]}}}
+    assert kernel_times.shapes_of(report) == [
+        ("leaf_sponge", 128, 32, 4), ("merkle_levels", 2048, 7),
+        ("ntt", 1, 128, 0)] + list(kernel_times.EXTRA)
     assert kernel_times.main(["--root", ".", "--report", "unused"]) == 2

@@ -17,6 +17,13 @@ PoseidonGate quotient program on XLA:CPU:
     python tests/test_torch_prove.py --write-fixtures --field babybear 6
     python tests/test_torch_prove.py --write-fixtures --field babybear \
         --sync-only 12
+
+``--retry`` writes the 2^6 circuit's retry companion instead
+(``tests/test_torch_retry.py`` reads it):
+
+    python tests/test_torch_prove.py --write-fixtures --retry 6
+    python tests/test_torch_prove.py --write-fixtures --retry \
+        --field babybear 6
 """
 
 from __future__ import annotations
@@ -304,6 +311,99 @@ def write_fixture(degree_bits: int, path: str,
               flush=True)
 
 
+# attempts the retry fixture's prove makes fail before the one that proves:
+# a BabyBear counter draw maps two neighbouring counters to one value, so
+# the first redraw of the 2^6 circuit gives the wire its old value again
+RETRY_FAILURES = 2
+
+
+def write_retry_fixture(degree_bits: int, path: str,
+                        field: str = "goldilocks") -> None:
+    """Prove the fixture circuit with the JAX sync prover once more, its
+    first RETRY_FAILURES attempts made to fail with ``InvZeroPermArg``, so
+    that the JAX retry loop redraws the random wire (``rand_field_element``
+    under ``set_nonrandom``) before each new attempt.  The file holds the
+    nonrandom counter at the first failed attempt, the redrawn values and
+    the flattened retry proof, checked by the JAX verifier and different
+    from the fixture's own proof; the circuit is that of
+    ``fixture_path(degree_bits, field)``."""
+    import time
+
+    from plonky2_goldibear_tpu.field import bb as jbb
+    from plonky2_goldibear_tpu.field import gl as jgl
+    from plonky2_goldibear_tpu.field.host import BABYBEAR
+    from plonky2_goldibear_tpu.hash import poseidon2_bb, poseidon_gl
+    from plonky2_goldibear_tpu.iop import generator as gen
+    from plonky2_goldibear_tpu.iop.witness import PartialWitness
+    from plonky2_goldibear_tpu.plonk import prover as jprover
+    from plonky2_goldibear_tpu.plonk.config import CircuitConfig
+    from plonky2_goldibear_tpu.plonk.verifier import verify
+    from plonky2_goldibear_tpu.utils.timing import ProvingProcessInfo
+
+    from plonky2_goldibear_torch.plonk.circuit_data import (fixture_path,
+                                                            read_fixture)
+    from plonky2_goldibear_torch.plonk.proof import flatten_proof
+
+    t0 = time.time()
+    gen.set_nonrandom(True)
+    if field == "babybear":
+        jF, hasher = jbb, poseidon2_bb
+        data, x = _build_arith_chain(
+            CircuitConfig.standard_recursion_config_bb(), degree_bits,
+            spec=BABYBEAR)
+    else:
+        jF, hasher = jgl, poseidon_gl
+        data, x = _build_arith_chain(
+            CircuitConfig.standard_recursion_config_gl(), degree_bits)
+    base, base_meta = read_fixture(fixture_path(degree_bits, field))
+    meta = _circuit_meta(data, field)
+    assert meta["circuit_digest"] == base_meta["circuit_digest"], \
+        "the circuit differs from the committed fixture's"
+    pw = PartialWitness()
+    pw.set_target(x, 3)
+
+    real_prove, real_draw = jprover._internal_prove, \
+        jprover.rand_field_element
+    seen = {"attempts": 0, "values": []}
+
+    def internal_prove(prover_data, common, wires_values, *args, **kw):
+        seen["attempts"] += 1
+        if seen["attempts"] == 1:
+            seen["counter"] = gen._NONRANDOM_COUNTER
+        if seen["attempts"] <= RETRY_FAILURES:
+            raise jprover.InvZeroPermArg()
+        row, col = prover_data.random_wire
+        seen["wire"] = int(jF.to_ints(wires_values)[col, row])
+        return real_prove(prover_data, common, wires_values, *args, **kw)
+
+    def draw(p):
+        seen["values"].append(real_draw(p))
+        return seen["values"][-1]
+
+    jprover._internal_prove, jprover.rand_field_element = \
+        internal_prove, draw
+    try:
+        gen.set_nonrandom(True)
+        proof = data.prove(pw, timing=ProvingProcessInfo("prove"))
+    finally:
+        jprover._internal_prove, jprover.rand_field_element = \
+            real_prove, real_draw
+    verify(proof, data.verifier_only, data.common, hasher=hasher)
+    values = seen["values"]
+    assert len(values) == RETRY_FAILURES and seen["wire"] == values[-1]
+    flat = flatten_proof(proof)
+    assert any(not np.array_equal(v, base["proof_" + k])
+               for k, v in flat.items()), "the retry proved the same proof"
+    arrays = {"counter": np.asarray(seen["counter"], dtype=np.uint64),
+              "values": np.asarray(values, dtype=np.uint64)}
+    for k, v in flat.items():
+        arrays["proof_" + k] = v
+    np.savez_compressed(path, **arrays)
+    print(f"wrote {path} ({os.path.getsize(path)} bytes) after "
+          f"{time.time() - t0:.0f} s: counter {seen['counter']}, "
+          f"values {values}", flush=True)
+
+
 def _write_fixtures(args) -> None:
     import jax
 
@@ -315,8 +415,12 @@ def _write_fixtures(args) -> None:
     from plonky2_goldibear_torch.plonk.circuit_data import fixture_path
 
     for bits in args.sizes or FIXTURE_SIZES:
-        write_fixture(bits, fixture_path(bits, args.field),
-                      not args.sync_only, args.field)
+        if args.retry:
+            write_retry_fixture(bits, fixture_path(bits, args.field, True),
+                                args.field)
+        else:
+            write_fixture(bits, fixture_path(bits, args.field),
+                          not args.sync_only, args.field)
 
 
 if __name__ == "__main__":
@@ -330,6 +434,8 @@ if __name__ == "__main__":
                     default="goldilocks")
     ap.add_argument("--sync-only", action="store_true",
                     help="skip the device-transcript comparison prove")
+    ap.add_argument("--retry", action="store_true",
+                    help="write the retry companion of each size instead")
     ap.add_argument("sizes", nargs="*", type=int,
                     help="log2 rows (default: 6 12)")
     cli = ap.parse_args()
