@@ -16,25 +16,39 @@
    BabyBear NTT at the single rows the prover sent before it batched them
    (1 x 2^15, 1 x 2^12), and the BabyBear leaf sponge at each prove shape
    at every group size (threads per state), with each tree's Merkle plan,
-   each NTT call's launch plan and each sponge's group printed; every NTT
-   call of a 2^12 prove must be one launch;
+   each NTT call's launch plan and each sponge's group printed; the shapes
+   of one 2^12 build (``CircuitBuilder.build``, the constants/sigmas
+   commit) of each field are recorded and checked the same way; every NTT
+   call of a 2^12 prove or build must be one launch;
 4. for each field (Goldilocks under standard_recursion_config_gl, then
-   BabyBear under standard_recursion_config_bb), loads the committed
-   arithmetic-chain fixtures (circuit and witness as data) through
-   ``load_fixture`` and proves them on the card with ``prove``: the 2^6
-   one, the 2^6 one again with its first attempts made to fail
-   (``InvZeroPermArg``) so that the random wire is redrawn from the
-   nonrandom counter the JAX retry recorded (``arith_chain*_2e6_retry.npz``:
-   each redrawn value and the proof must equal the JAX retry's), then the
-   2^12 one (that field's main path), timed over 3 warm
-   proves, with every kernel's launches counted over one prove (the counts
-   are set to 0 just before it).  Each proof must equal the fixture's
-   stored JAX proof field by field.  One more warm 2^12 prove of each
-   field runs under torch.profiler (CUDA activities): per kernel name its
-   launches and summed device ms, and the device-busy share: the summed
-   kernel and copy time over the median wall time of the 3 unprofiled
-   proves (the profiled prove's own wall time, which the profiler
-   lengthens, is printed beside it).
+   BabyBear under standard_recursion_config_bb):
+   - builds the 2^6 arithmetic chain (``circuits.arith_chain``) with the
+     port's builder on the card and holds its constants/sigmas, cap,
+     digest and metadata against the committed JAX fixture; generates the
+     witness of x = 3 from ``NonRandomRng(1)`` and holds the wires, the
+     public inputs and the counter it leaves (that of the retry fixture)
+     against the fixture's; proves it, and proves it again with its first
+     attempts made to fail (``InvZeroPermArg``) through
+     ``CircuitData.prove`` from ``NonRandomRng(1)``, so that the random
+     wire is redrawn where witness generation left the counter: each
+     redrawn value and the proof must equal the JAX retry's
+     (``arith_chain*_2e6_retry.npz``);
+   - loads the 2^6 fixture as data through ``load_fixture`` and proves it,
+     and its retry from the recorded counter, the same way;
+   - the main path at 2^12: adds the chain with the gadgets
+     (``gadgets_s``), builds it on the card (``build_s`` and its phases;
+     the kernels' launches counted over the build, the counts set to 0
+     just before it) and generates the witness (``witgen_s``), 3 times,
+     holds the last against the fixture, then proves it 3 times
+     warm with ``prove``, every kernel's launches counted over one prove
+     (the counts set to 0 just before it), and times one whole
+     ``CircuitData.prove(pw)`` (witness generation and prove) beside it.
+   Each proof must equal the fixture's stored JAX proof field by field.
+   One more warm 2^12 prove of each field runs under torch.profiler (CUDA
+   activities): per kernel name its launches and summed device ms, and
+   the device-busy share: the summed kernel and copy time over the median
+   wall time of the 3 unprofiled proves (the profiled prove's own wall
+   time, which the profiler lengthens, is printed beside it).
 
 Between 3 and 4, the probe phase: each dependent-chain probe kernel
 (``ops/probes.py``: GL multiply, squaring, two x^7 S-boxes, u32 multiply,
@@ -82,6 +96,8 @@ FMA_RTOL = 1e-5               # fmaf rounds once, the plain version twice
 OUT_DIR = "chip_smoke_out"    # the report, listed in .gitignore
 PROFILE_TOP = 25              # kernels printed per profiled prove
 MAIN_BITS = 12                # the benchmark circuit: 2^12 rows
+PRESETS = {"goldilocks": "standard_recursion_config_gl",
+           "babybear": "standard_recursion_config_bb"}
 SMALL_BITS = 6                # a second fixture: small trees, mostly tail
 # Merkle trees checked besides the prove's: FRI layers to a cap of 16 and
 # a tree to its root (one subtree for the tail)
@@ -264,10 +280,17 @@ def main() -> int:
     from plonky2_goldibear_torch.ops import ntt_bb as K_nttb
     from plonky2_goldibear_torch.ops import poseidon2_bb as K_p2
     from plonky2_goldibear_torch.ops import poseidon_gl as K_pos
+    from plonky2_goldibear_torch import circuits
+    from plonky2_goldibear_torch.field import host
     from plonky2_goldibear_torch.iop.generator import NonRandomRng
+    from plonky2_goldibear_torch.iop.witness import PartialWitness
     from plonky2_goldibear_torch.plonk import prover
-    from plonky2_goldibear_torch.plonk.circuit_data import (fixture_path,
-                                                            load_fixture)
+    from plonky2_goldibear_torch.plonk.builder import CircuitBuilder
+    from plonky2_goldibear_torch.plonk.circuit_data import (circuit_meta,
+                                                            fixture_path,
+                                                            load_fixture,
+                                                            read_fixture)
+    from plonky2_goldibear_torch.plonk.config import CircuitConfig
     from plonky2_goldibear_torch.plonk.proof import (PROOF_PHASES,
                                                      flatten_proof)
 
@@ -474,7 +497,16 @@ def main() -> int:
               nbytes, perms * perm_muls,
               sboxes=perms * GL_PERM_SBOXES if is_gl else None)
 
-    prove_calls = {}
+    def chain(field, bits):
+        """(builder, x, seconds): the arithmetic chain of 2^bits rows added
+        to the port's builder by its gadgets, not yet built."""
+        spec = host.GOLDILOCKS if field == "goldilocks" else host.BABYBEAR
+        b = CircuitBuilder(getattr(CircuitConfig, PRESETS[field])(), spec)
+        t0 = time.perf_counter()
+        x = circuits.arith_chain(b, bits)
+        return b, x, time.perf_counter() - t0
+
+    prove_calls, build_calls = {}, {}
     try:
         for field in ("goldilocks", "babybear"):
             circuit, _ = load_fixture(MAIN_BITS, device="cuda", field=field)
@@ -483,14 +515,24 @@ def main() -> int:
                 prover.prove(circuit, device="cuda")
             finally:
                 prove_calls[field], ops.calls = ops.calls, None
+            b, _, _ = chain(field, MAIN_BITS)
+            ops.calls = []
+            try:
+                b.build(device="cuda")
+            finally:
+                build_calls[field], ops.calls = ops.calls, None
         report["prove_calls"] = prove_calls
-        shapes = {tuple(c) for calls in prove_calls.values() for c in calls}
+        report["build_calls"] = build_calls
+        print("build calls: " + json.dumps(build_calls))
+        shapes = {tuple(c) for calls in (*prove_calls.values(),
+                                         *build_calls.values())
+                  for c in calls}
         shapes |= {("merkle_levels", n, layers) for n, layers in EXTRA_TREES}
         shapes |= set(EXTRA_BB_CALLS)
         for call in sorted(shapes):
             prove_shape_check(call)
             report["checks"][_shape_key(call)]["call"] = list(call)
-        # every NTT call of a prove is one launch (rows up to 2^15)
+        # every NTT call of a prove or build is one launch (rows up to 2^15)
         for key, c in report["checks"].items():
             call = c.get("call")
             if call and call[0] in ("ntt", "ntt_bb") and call[2] <= 1 << 15 \
@@ -600,10 +642,11 @@ def main() -> int:
         failures.extend(f"{field} 2^{bits}: proof phase {k} differs from "
                         "the JAX proof" for k, v in ok.items() if not v)
 
-    def check_retry(field, bits, circuit):
-        """The prove of ``circuit`` with its first attempts made to fail,
-        the random wire redrawn from the recorded nonrandom counter; the
-        redrawn values and the proof against the JAX retry's."""
+    def check_retry(field, bits, label, prove_fn):
+        """``prove_fn(counter)`` proves with its first attempts made to
+        fail, the random wire redrawn from the nonrandom counter the JAX
+        retry recorded; the redrawn values and the proof against the JAX
+        retry's."""
         with np.load(fixture_path(bits, field, retry=True)) as z:
             arrays = {k: z[k] for k in z.files}
         want = [int(v) for v in arrays["values"]]
@@ -618,16 +661,86 @@ def main() -> int:
 
         prover._internal_prove = internal_prove
         try:
-            proof = prover.prove(circuit, device="cuda",
-                                 rng=NonRandomRng(int(arrays["counter"])))
+            proof = prove_fn(int(arrays["counter"]))
         finally:
             prover._internal_prove = real
-        print(f"{field} 2^{bits} retry: redrawn {seen[1:]}, JAX {want}")
-        report[f"{field}_retry_2e{bits}_values"] = seen[1:]
+        print(f"{field} 2^{bits} {label} retry: redrawn {seen[1:]}, "
+              f"JAX {want}")
+        report[f"{field}_{label}_retry_2e{bits}_values"] = seen[1:]
         if seen[1:] != want:
-            failures.append(f"{field} 2^{bits} retry: redrawn {seen[1:]}, "
-                            f"the JAX retry {want}")
-        check_proof(field, f"{bits}_retry", proof, arrays)
+            failures.append(f"{field} 2^{bits} {label} retry: redrawn "
+                            f"{seen[1:]}, the JAX retry {want}")
+        check_proof(field, f"{bits}_{label}_retry", proof, arrays)
+
+    def built(field, bits, reps=1):
+        """Build the chain of 2^bits rows on the card ``reps`` times (the
+        gadgets and ``build`` timed apart, the kernels' launches counted
+        over the build) and generate the witness of x = 3 from
+        NonRandomRng(1) after each (timed); hold the last build and
+        witness against the fixture: (data, pw, circuit with its witness,
+        fixture arrays)."""
+        arrays, meta = read_fixture(fixture_path(bits, field))
+        with np.load(fixture_path(SMALL_BITS, field, retry=True)) as z:
+            # one random wire per public-input gate wire past the hash, at
+            # any size: the counter the JAX retry fixture recorded
+            counter = int(z["counter"])
+        rec = {"gadgets_s": [], "build_s": [], "build_phases": [],
+               "witgen_s": []}
+        for _ in range(reps):
+            b, x, gadgets_s = chain(field, bits)
+            timings = {}
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data = b.build(device="cuda", timings=timings)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            pw = PartialWitness()
+            pw.set_target(x, 3)
+            rng = NonRandomRng(1)
+            t0 = time.perf_counter()
+            circuit = data.circuit(pw, rng)
+            torch.cuda.synchronize()
+            rec["witgen_s"].append(time.perf_counter() - t0)
+            rec["gadgets_s"].append(gadgets_s)
+            rec["build_s"].append(build_s)
+            rec["build_phases"].append(timings)
+        ok = {
+            "constants_sigmas": bool(np.array_equal(
+                data.F.to_ints(data.prover_only.constants_sigmas_values),
+                arrays["constants_sigmas"])),
+            "constants_sigmas_cap": bool(np.array_equal(
+                np.asarray(data.verifier_only.constants_sigmas_cap,
+                           dtype=np.uint64), arrays["constants_sigmas_cap"])),
+            "circuit_digest": data.verifier_only.circuit_digest
+            == meta["circuit_digest"],
+            "meta": circuit_meta(data, field) == dict(meta, field=field),
+            "wires": bool(np.array_equal(data.F.to_ints(circuit.wires),
+                                         arrays["wires"])),
+            "public_inputs": circuit.public_inputs
+            == [int(v) for v in arrays["public_inputs"]],
+            "counter": rng.counter == counter,
+        }
+        print(f"{field} 2^{bits} built by the port vs the JAX fixture: "
+              + json.dumps(ok))
+        failures.extend(f"{field} 2^{bits} build: {k} differs from the "
+                        "JAX fixture's" for k, v in ok.items() if not v)
+        rec["launches"] = {k: v for k, v in launches.items() if v}
+        rec["equal"] = ok
+        med = {k: statistics.median(rec[k])
+               for k in ("gadgets_s", "build_s", "witgen_s")}
+        phases = {k: statistics.median(p[k] for p in rec["build_phases"])
+                  for k in rec["build_phases"][0]}
+        for k in ("gadgets_s", "build_s", "witgen_s"):
+            print(f"{field} 2^{bits} {k} {med[k]:.4f} (median of {reps}: "
+                  f"{[round(t, 4) for t in rec[k]]})")
+        print(f"{field} 2^{bits} build phases (s, median of {reps}): "
+              + json.dumps({k: round(v, 4) for k, v in phases.items()}))
+        print(f"{field} 2^{bits} build launches: "
+              + json.dumps(rec["launches"]))
+        report[f"{field}_build_2e{bits}"] = rec
+        return data, pw, circuit, arrays
 
     # the counters of each path's kernels
     path_kernels = {
@@ -635,15 +748,35 @@ def main() -> int:
         "babybear": ("ntt_bb", "p2_permute", "p2_leaf_sponge",
                      "p2_merkle_levels"),
     }
+    # the kernels of the constants/sigmas commit of a build
+    build_kernels = {"goldilocks": ("ntt", "leaf_sponge", "merkle_levels"),
+                     "babybear": ("ntt_bb", "p2_leaf_sponge",
+                                  "p2_merkle_levels")}
     counts = {}
     for field, counters in path_kernels.items():
         try:
+            # the port's own circuit at 2^6, and its retry through
+            # CircuitData.prove: the counter goes on from witness generation
+            data, pw, circuit, arrays = built(field, SMALL_BITS)
+            check_proof(field, f"{SMALL_BITS}_built",
+                        prover.prove(circuit, device="cuda"), arrays)
+            check_retry(field, SMALL_BITS, "built",
+                        lambda _: data.prove(pw, rng=NonRandomRng(1)))
+            # the circuit carried across as data, and its retry
             circuit, arrays = load(field, SMALL_BITS)
             check_proof(field, SMALL_BITS,
                         prover.prove(circuit, device="cuda"), arrays)
-            check_retry(field, SMALL_BITS, circuit)
-            # the main path at the benchmark size: warm-up, 3 timed proves
-            circuit, arrays = load(field, MAIN_BITS)
+            check_retry(field, SMALL_BITS, "loaded",
+                        lambda counter: prover.prove(
+                            circuit, device="cuda", rng=NonRandomRng(counter)))
+            # the main path at the benchmark size: build, witness, warm-up,
+            # 3 timed proves of the finished circuit
+            data, pw, circuit, arrays = built(field, MAIN_BITS, reps=3)
+            for k in build_kernels[field]:
+                if report[f"{field}_build_2e{MAIN_BITS}"]["launches"].get(
+                        k, 0) <= 0:
+                    failures.append(f"kernel {k} was not launched by the "
+                                    f"{field} build")
             prover.prove(circuit, device="cuda")
             times, phases = [], []
             for _ in range(3):
@@ -657,6 +790,17 @@ def main() -> int:
                 run_counts = ops.launch_counts()
                 phases.append(timings)
             check_proof(field, MAIN_BITS, proof, arrays)
+            # one whole CircuitData.prove: witness generation and prove
+            whole = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            proof = data.prove(pw, rng=NonRandomRng(1), timings=whole)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            check_proof(field, f"{MAIN_BITS}_whole", proof, arrays)
+            print(f"{field} whole data.prove(pw) 2^{MAIN_BITS}: "
+                  f"{whole_s:.4f} s, of it witness generation "
+                  f"{whole['witness_generation']:.4f} s")
             median_phases = {k: statistics.median(p[k] for p in phases)
                              for k in phases[0]}
             print(f"{field} prove 2^{MAIN_BITS} on cuda: median "
@@ -666,7 +810,8 @@ def main() -> int:
                 {k: round(v, 4) for k, v in median_phases.items()}))
             print(f"{field} launches in one prove: " + json.dumps(run_counts))
             report[field] = dict(prove_s=times, phases=median_phases,
-                                 launches=run_counts)
+                                 launches=run_counts, whole_prove_s=whole_s,
+                                 whole_phases=whole)
             # one more warm prove under the profiler
             prof = _profile(lambda: prover.prove(circuit, device="cuda"),
                             statistics.median(times) * 1e3)

@@ -1,12 +1,14 @@
-"""The four foundation gates, constraint side: Arithmetic, Constant,
-PublicInput, Noop (reference plonky2/src/gates/{arithmetic_base.rs,
-constant.rs, public_input.rs, noop.rs}).  ``id()`` strings are the
-reference's Rust Debug formatting, as in the JAX package."""
+"""The four foundation gates: Arithmetic, Constant, PublicInput, Noop
+(reference plonky2/src/gates/{arithmetic_base.rs, constant.rs,
+public_input.rs, noop.rs}).  ``id()`` strings are the reference's Rust
+Debug formatting, as in the JAX package."""
 
 from __future__ import annotations
 
 import torch
 
+from ..iop import generator as gen
+from ..iop import target as tgt
 from .base import Gate
 
 
@@ -17,11 +19,34 @@ class ArithmeticGate(Gate):
     def __init__(self, num_ops: int):
         self.num_ops = num_ops
 
+    @classmethod
+    def from_config(cls, config) -> "ArithmeticGate":
+        return cls(config.num_routed_wires // 4)
+
     def id(self):
         return f"ArithmeticGate {{ num_ops: {self.num_ops} }}"
 
+    @staticmethod
+    def wires(i: int):
+        """(multiplicand 0, multiplicand 1, addend, output) of op i."""
+        return 4 * i, 4 * i + 1, 4 * i + 2, 4 * i + 3
+
+    def num_wires(self):
+        return 4 * self.num_ops
+
+    def num_constants(self):
+        return 2
+
+    def degree(self):
+        return 3
+
     def num_constraints(self):
         return self.num_ops
+
+    def generators(self, row, local_constants, spec):
+        c0, c1 = int(local_constants[0]), int(local_constants[1])
+        return [_ArithmeticOpGenerator(row, c0, c1, i, spec.p)
+                for i in range(self.num_ops)]
 
     def eval_unfiltered_device(self, F, wires, constants, pi_hash):
         w = wires[:4 * self.num_ops].reshape(self.num_ops, 4, -1)
@@ -29,6 +54,27 @@ class ArithmeticGate(Gate):
         computed = F.add(F.mul(F.mul(m0, m1), constants[0]),
                          F.mul(addend, constants[1]))
         return F.sub(out, computed)
+
+
+class _ArithmeticOpGenerator(gen.SimpleGenerator):
+    """output = c0 * m0 * m1 + c1 * addend of one op."""
+
+    def __init__(self, row, c0, c1, i, p):
+        self.row, self.c0, self.c1, self.i, self.p = row, c0, c1, i, p
+
+    def dependencies(self):
+        w0, w1, wa, _ = ArithmeticGate.wires(self.i)
+        return [tgt.wire(self.row, w0), tgt.wire(self.row, w1),
+                tgt.wire(self.row, wa)]
+
+    def run_once(self, witness, out):
+        w0, w1, wa, wo = ArithmeticGate.wires(self.i)
+        m0 = witness.get_target(tgt.wire(self.row, w0))
+        m1 = witness.get_target(tgt.wire(self.row, w1))
+        ad = witness.get_target(tgt.wire(self.row, wa))
+        p = self.p
+        out.append((tgt.wire(self.row, wo),
+                    (self.c0 * m0 % p * m1 + self.c1 * ad) % p))
 
 
 class ConstantGate(Gate):
@@ -41,8 +87,22 @@ class ConstantGate(Gate):
     def id(self):
         return f"ConstantGate {{ num_consts: {self.num_consts} }}"
 
+    def num_wires(self):
+        return self.num_consts
+
+    def num_constants(self):
+        return self.num_consts
+
+    def degree(self):
+        return 1
+
     def num_constraints(self):
         return self.num_consts
+
+    # no gate generators: the builder routes constants through the
+    # ConstantGenerators it makes in add_gate (reference constant.rs:105)
+    def extra_constant_wires(self):
+        return [(i, i) for i in range(self.num_consts)]
 
     def eval_unfiltered_device(self, F, wires, constants, pi_hash):
         k = self.num_consts
@@ -59,6 +119,15 @@ class PublicInputGate(Gate):
     def id(self):
         return f"PublicInputGate<{self.n}>"
 
+    def num_wires(self):
+        return self.n
+
+    def num_constants(self):
+        return 0
+
+    def degree(self):
+        return 1
+
     def num_constraints(self):
         return self.n
 
@@ -71,6 +140,15 @@ class NoopGate(Gate):
 
     def id(self):
         return "NoopGate"
+
+    def num_wires(self):
+        return 0
+
+    def num_constants(self):
+        return 0
+
+    def degree(self):
+        return 0
 
     def num_constraints(self):
         return 0

@@ -1,6 +1,5 @@
-"""PoseidonGate, constraint side: a full width-12 Poseidon permutation in
-one row with a conditional-swap flag (reference
-plonky2/src/gates/poseidon_goldilocks.rs).
+"""PoseidonGate: a full width-12 Poseidon permutation in one row with a
+conditional-swap flag (reference plonky2/src/gates/poseidon_goldilocks.rs).
 
 Wire layout (reference :44-103): 12 inputs, 12 outputs, swap flag, 4 swap
 deltas, then the S-box inputs of every round after the first full round.
@@ -8,6 +7,8 @@ The constraints re-run the permutation between the stored S-box inputs with
 the reference's fast partial-round schedule, vectorised over the 12 lanes
 and every point of the quotient domain (the JAX package's
 ``eval_unfiltered_device``, same values in the same order).
+``PoseidonGenerator`` fills the wires on the host with the same fast
+schedule (``hash/poseidon_gl.py`` ``*_host``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ import torch
 
 from ..field import gl
 from ..hash import _poseidon_gl_constants as C
+from ..hash import poseidon_gl as pg
+from ..iop import generator as gen
+from ..iop import target as tgt
 from ..ops import poseidon_gl as K
 from .base import Gate
 
@@ -65,11 +69,51 @@ class PoseidonGate(Gate):
     START_FULL_1 = START_PARTIAL + NP
     END = START_FULL_1 + W * HALF
 
+    @staticmethod
+    def wire_input(i):
+        return i
+
+    @staticmethod
+    def wire_output(i):
+        return W + i
+
+    @classmethod
+    def wire_delta(cls, i):
+        assert i < 4
+        return cls.START_DELTA + i
+
+    @classmethod
+    def wire_full_sbox_0(cls, round_, i):
+        assert 0 < round_ < HALF
+        return cls.START_FULL_0 + W * (round_ - 1) + i
+
+    @classmethod
+    def wire_partial_sbox(cls, round_):
+        assert round_ < NP
+        return cls.START_PARTIAL + round_
+
+    @classmethod
+    def wire_full_sbox_1(cls, round_, i):
+        assert round_ < HALF
+        return cls.START_FULL_1 + W * round_ + i
+
     def id(self):
         return f"PoseidonGate<WIDTH={W}>"
 
+    def num_wires(self):
+        return self.END
+
+    def num_constants(self):
+        return 0
+
+    def degree(self):
+        return 7
+
     def num_constraints(self):
         return W * (2 * HALF - 1) + NP + W + 1 + 4
+
+    def generators(self, row, local_constants, spec):
+        return [PoseidonGenerator(row, spec)]
 
     def eval_unfiltered_device(self, F, wires: torch.Tensor, constants,
                                pi_hash) -> torch.Tensor:
@@ -126,3 +170,61 @@ class PoseidonGate(Gate):
         constraints += list(gl.sub(state, outputs))
         assert len(constraints) == self.num_constraints()
         return torch.stack(constraints)
+
+
+class PoseidonGenerator(gen.SimpleGenerator):
+    """Fills the deltas, the S-box inputs of each round and the outputs
+    (reference gates/poseidon_goldilocks.rs:438-533)."""
+
+    def __init__(self, row: int, spec):
+        self.row = row
+        self.spec = spec
+
+    def dependencies(self):
+        g = PoseidonGate
+        return [tgt.wire(self.row, g.wire_input(i)) for i in range(W)] + \
+            [tgt.wire(self.row, g.WIRE_SWAP)]
+
+    def run_once(self, witness, out):
+        g = PoseidonGate
+        row = self.row
+        wv = [witness.get_target(tgt.wire(row, g.wire_input(i)))
+              for i in range(W)]
+        swap = witness.get_target(tgt.wire(row, g.WIRE_SWAP))
+        assert swap in (0, 1), swap
+        p = self.spec.p
+        for i in range(4):
+            out.append((tgt.wire(row, g.wire_delta(i)),
+                        swap * (wv[i + 4] - wv[i]) % p))
+        state = list(wv)
+        if swap == 1:
+            state[0:4], state[4:8] = wv[4:8], wv[0:4]
+
+        round_ctr = 0
+        for r in range(HALF):
+            state = pg.constant_layer_host(state, round_ctr)
+            if r != 0:
+                out.extend((tgt.wire(row, g.wire_full_sbox_0(r, i)),
+                            state[i]) for i in range(W))
+            state = pg.mds_layer_host(pg.sbox_layer_host(state))
+            round_ctr += 1
+
+        state = pg.partial_first_constant_layer_host(state)
+        state = pg.mds_partial_layer_init_host(state)
+        for r in range(NP):
+            out.append((tgt.wire(row, g.wire_partial_sbox(r)), state[0]))
+            state[0] = pg.sbox_host(state[0])
+            if r < NP - 1:
+                state[0] = (state[0] + C.FAST_PARTIAL_ROUND_CONSTANTS[r]) % p
+            state = pg.mds_partial_layer_fast_host(state, r)
+        round_ctr += NP
+
+        for r in range(HALF):
+            state = pg.constant_layer_host(state, round_ctr)
+            out.extend((tgt.wire(row, g.wire_full_sbox_1(r, i)), state[i])
+                       for i in range(W))
+            state = pg.mds_layer_host(pg.sbox_layer_host(state))
+            round_ctr += 1
+
+        out.extend((tgt.wire(row, g.wire_output(i)), state[i])
+                   for i in range(W))

@@ -1,11 +1,17 @@
 """Selector layout of a circuit (reference plonky2/src/gates/selectors.rs:
 125-209): gates are grouped, and selector polynomial S_i takes the gate's
-index on rows of a gate of group i, UNUSED_SELECTOR elsewhere."""
+index on rows of a gate of group i, UNUSED_SELECTOR elsewhere.  The builder
+computes the layout with ``selector_polynomials``; a loaded circuit brings
+it in its metadata."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import List, Tuple
+
+import numpy as np
+
+from .base import UNUSED_SELECTOR
 
 
 @dataclass
@@ -16,3 +22,45 @@ class SelectorsInfo:
     @property
     def num_selectors(self) -> int:
         return len(self.groups)
+
+
+def selector_polynomials(gates, instances, max_degree: int, p: int):
+    """gates: the sorted unique gates; instances: one (gate, constants)
+    instance per row.  Returns (selector value arrays, SelectorsInfo):
+    gates are grouped greedily in their sorted order so that a group's size
+    plus its largest degree stays below ``max_degree``, or all in one group
+    when they fit (reference selectors.rs:125-209)."""
+    n = len(instances)
+    num_gates = len(gates)
+    max_gate_degree = gates[-1].degree()
+    index = {g.id(): i for i, g in enumerate(gates)}
+
+    if max_gate_degree + num_gates - 1 <= max_degree:
+        poly = np.array([index[inst.gate.id()] for inst in instances],
+                        dtype=np.uint64)
+        return [poly], SelectorsInfo(selector_indices=[0] * num_gates,
+                                     groups=[(0, num_gates)])
+
+    assert max_gate_degree < max_degree, (
+        f"{gates[-1].id()} has too high degree; "
+        "increase max_quotient_degree_factor")
+
+    groups: List[Tuple[int, int]] = []
+    start = 0
+    while start < num_gates:
+        size = 0
+        while (start + size < num_gates
+               and size + gates[start + size].degree() < max_degree):
+            size += 1
+        groups.append((start, start + size))
+        start += size
+    selector_indices = [next(gi for gi, (a, b) in enumerate(groups)
+                             if a <= i < b) for i in range(num_gates)]
+
+    unused = UNUSED_SELECTOR % p
+    polys = [np.full(n, unused, dtype=np.uint64) for _ in groups]
+    for row, inst in enumerate(instances):
+        i = index[inst.gate.id()]
+        polys[selector_indices[i]][row] = i
+    return polys, SelectorsInfo(selector_indices=selector_indices,
+                                groups=groups)

@@ -50,7 +50,7 @@ def _mat4(x: List[int]) -> List[int]:
             (t + x2 + 2 * x3) % P, (t + x3 + 2 * x0) % P]
 
 
-def _external_host(s: List[int]) -> List[int]:
+def external_layer_host(s: List[int]) -> List[int]:
     out = []
     for i in range(0, WIDTH, 4):
         out.extend(_mat4(s[i:i + 4]))
@@ -58,7 +58,7 @@ def _external_host(s: List[int]) -> List[int]:
     return [(out[i] + sums[i % 4]) % P for i in range(WIDTH)]
 
 
-def _internal_host(s: List[int]) -> List[int]:
+def internal_layer_host(s: List[int]) -> List[int]:
     s = [x * C.INTERNAL_SCALE % P for x in s]
     part = sum(s[1:])
     full = part + s[0]
@@ -67,20 +67,20 @@ def _internal_host(s: List[int]) -> List[int]:
         for x, k in zip(s[1:], C.INTERNAL_DIAG_SHIFTS)]
 
 
-def _sbox_host(x: int) -> int:
+def sbox_host(x: int) -> int:
     return pow(x, 7, P)
 
 
 def permute_host(state: Sequence[int]) -> List[int]:
     """The width-16 Poseidon2 permutation on 16 canonical ints."""
     assert len(state) == WIDTH
-    s = _external_host([int(x) % P for x in state])
+    s = external_layer_host([int(x) % P for x in state])
     for r in range(C.N_FULL_ROUNDS_TOTAL):
         if r == C.HALF_N_FULL_ROUNDS:
             for rc in C.INTERNAL_CONSTANTS:
-                s[0] = _sbox_host((s[0] + rc) % P)
-                s = _internal_host(s)
-        s = _external_host([_sbox_host((x + c) % P)
+                s[0] = sbox_host((s[0] + rc) % P)
+                s = internal_layer_host(s)
+        s = external_layer_host([sbox_host((x + c) % P)
                             for x, c in zip(s, C.EXTERNAL_CONSTANTS[r])])
     return s
 

@@ -37,14 +37,14 @@ merkle_levels = K.merkle_levels
 # --------------------------------------------------------------------------
 
 
-def _sbox(x: int) -> int:
+def sbox_host(x: int) -> int:
     x2 = x * x % P
     x3 = x2 * x % P
     x4 = x2 * x2 % P
     return x3 * x4 % P
 
 
-def _mds_host(state: List[int]) -> List[int]:
+def mds_layer_host(state: List[int]) -> List[int]:
     return [sum(int(_MDS[r, j]) * state[j] for j in range(WIDTH)) % P
             for r in range(WIDTH)]
 
@@ -62,10 +62,10 @@ def permute_host(state: Sequence[int]) -> List[int]:
                                        WIDTH * (round_ctr + 1)]
             s = [(x + c) % P for x, c in zip(s, rc)]
             if full:
-                s = [_sbox(x) for x in s]
+                s = [sbox_host(x) for x in s]
             else:
-                s[0] = _sbox(s[0])
-            s = _mds_host(s)
+                s[0] = sbox_host(s[0])
+            s = mds_layer_host(s)
             round_ctr += 1
     return s
 
@@ -89,6 +89,42 @@ def hash_n_to_m_no_pad_host(inputs: Sequence[int],
 
 def hash_no_pad_host(inputs: Sequence[int]) -> List[int]:
     return hash_n_to_m_no_pad_host(inputs, NUM_HASH_OUT)
+
+
+# The reference's fast partial-round schedule on host ints
+# (poseidon_goldilocks.rs:632-812; the JAX package's
+# ``hash/poseidon_gl.py:134-200``, there over an algebra), with
+# ``mds_layer_host`` and ``sbox_host`` above: the PoseidonGate generator
+# fills its partial S-box wires with state[0] of this form.
+
+
+def constant_layer_host(state: List[int], round_ctr: int) -> List[int]:
+    rc = C.ALL_ROUND_CONSTANTS[WIDTH * round_ctr:WIDTH * (round_ctr + 1)]
+    return [(x + c) % P for x, c in zip(state, rc)]
+
+
+def sbox_layer_host(state: List[int]) -> List[int]:
+    return [sbox_host(x) for x in state]
+
+
+def partial_first_constant_layer_host(state: List[int]) -> List[int]:
+    return [(x + c) % P
+            for x, c in zip(state, C.FAST_PARTIAL_FIRST_ROUND_CONSTANT)]
+
+
+def mds_partial_layer_init_host(state: List[int]) -> List[int]:
+    m = C.FAST_PARTIAL_ROUND_INITIAL_MATRIX
+    return [state[0]] + [
+        sum(m[r - 1][c - 1] * state[r] for r in range(1, WIDTH)) % P
+        for c in range(1, WIDTH)]
+
+
+def mds_partial_layer_fast_host(state: List[int], r: int) -> List[int]:
+    mds0to0 = C.MDS_MATRIX_CIRC[0] + C.MDS_MATRIX_DIAG[0]
+    d = mds0to0 * state[0] + sum(
+        w * x for w, x in zip(C.FAST_PARTIAL_ROUND_W_HATS[r], state[1:]))
+    return [d % P] + [(v * state[0] + x) % P
+                      for v, x in zip(C.FAST_PARTIAL_ROUND_VS[r], state[1:])]
 
 
 # --------------------------------------------------------------------------

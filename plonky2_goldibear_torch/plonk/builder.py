@@ -1,0 +1,575 @@
+"""Circuit builder (reference plonky2/src/plonk/circuit_builder.rs:144-1410,
+gadgets/arithmetic.rs:30-165; the base-field subset of the JAX package's
+``plonk/builder.py``).
+
+The builder is a host frontend: targets, gates placed row by row, copy
+constraints and constants, for the gates the port has (Arithmetic,
+Constant, PublicInput, Noop, Poseidon-GL, Poseidon2-BB width 16).
+``build`` lays out the selectors, constants and sigmas, commits the
+constants/sigmas on the device with the port's ``PolynomialBatch`` (the
+NTT, leaf-sponge and Merkle kernels on the card), collects the witness
+generators and hashes the circuit digest.  What this slice does not carry
+raises ``NotImplementedError`` naming its ROADMAP Queue 1 item.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .. import device as devmod
+from ..field import host
+from ..fri.oracle import PolynomialBatch
+from ..gates import selectors as selectors_mod
+from ..gates.basic_gates import (ArithmeticGate, ConstantGate, NoopGate,
+                                 PublicInputGate)
+from ..gates.poseidon import PoseidonGate
+from ..gates.poseidon2_bb_gate import Poseidon2BabyBearGate
+from ..iop import generator as gen
+from ..iop import target as tgt
+from ..utils.context_tree import ContextTree
+from .circuit_data import (FIELDS, CircuitData, CommonCircuitData,
+                           ProverOnlyCircuitData, VerifierOnlyCircuitData)
+from .config import CircuitConfig
+from .permutation import Forest
+from .prover import phase
+
+
+@dataclass
+class GateInstance:
+    gate: object
+    constants: List[int]
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+class CircuitBuilder:
+    def __init__(self, config: CircuitConfig,
+                 spec: host.FieldSpec = host.GOLDILOCKS, hasher=None):
+        self.config = config
+        self.spec = spec
+        _, self.F, self.hasher = FIELDS[spec.name]
+        self._check_hasher(hasher)
+        # the circuit digest's domain separator (circuit_builder.rs:1301)
+        self.domain_separator: List[int] = []
+        # cyclic recursion's goal (circuit_builder.rs:1332): item 4
+        self.goal_common_data = None
+        self.gate_instances: List[GateInstance] = []
+        self.gates: Dict[str, object] = {}
+        self.copy_constraints: List[Tuple[tgt.Target, tgt.Target]] = []
+        self.virtual_target_index = 0
+        self.public_inputs: List[tgt.Target] = []
+        self.constants_to_targets: Dict[int, tgt.Target] = {}
+        self.targets_to_constants: Dict[tgt.Target, int] = {}
+        self.constant_generators: List[gen.ConstantGenerator] = []
+        self.generators: List = []
+        # slot packing: gate id -> {params: (row, next free op)}
+        # (circuit_builder.rs:824-853)
+        self.current_slots: Dict[str, Dict[Tuple, Tuple[int, int]]] = {}
+        self._slot_gates: Dict[str, object] = {}
+        self.base_arithmetic_results: Dict[Tuple, tgt.Target] = {}
+        self.context_tree = ContextTree()
+
+    def _check_hasher(self, hasher):
+        if hasher is None or hasher is self.hasher:
+            return
+        if getattr(hasher, "WIDTH", None) == 24:
+            raise _not_ported("the width-24 Poseidon2 hasher", 6)
+        raise _not_ported(f"hasher {getattr(hasher, '__name__', hasher)}", 7)
+
+    # -- targets -------------------------------------------------------------
+
+    def add_virtual_target(self) -> tgt.Target:
+        t = tgt.virtual_target(self.virtual_target_index)
+        self.virtual_target_index += 1
+        return t
+
+    def add_virtual_targets(self, n: int) -> List[tgt.Target]:
+        return [self.add_virtual_target() for _ in range(n)]
+
+    def register_public_input(self, t: tgt.Target):
+        self.public_inputs.append(t)
+
+    def register_public_inputs(self, ts: Sequence[tgt.Target]):
+        for t in ts:
+            self.register_public_input(t)
+
+    def num_gates(self) -> int:
+        return len(self.gate_instances)
+
+    # -- gate-count contexts (circuit_builder.rs:719-725) --------------------
+
+    def push_context(self, name: str):
+        self.context_tree.push(name, self.num_gates())
+
+    def pop_context(self):
+        self.context_tree.pop(self.num_gates())
+
+    def print_gate_counts(self, min_delta: int = 1) -> str:
+        """The gate count of each context (context_tree.rs:134,
+        circuit_builder.rs:1042-1058); returns the report and logs it."""
+        final = self.num_gates()
+        report = "\n".join(self.context_tree.filter(final, min_delta)
+                           .lines(final))
+        logging.getLogger(__name__).debug(report)
+        return report
+
+    # -- gates ---------------------------------------------------------------
+
+    def add_gate(self, gate, constants: Sequence[int]) -> int:
+        assert gate.num_wires() <= self.config.num_wires, \
+            f"{gate.id()} needs {gate.num_wires()} wires"
+        assert gate.num_constants() <= self.config.num_constants or \
+            isinstance(gate, ConstantGate), gate.id()
+        constants = [c % self.spec.p for c in constants]
+        assert len(constants) <= gate.num_constants(), "Too many constants."
+        constants = constants + [0] * (gate.num_constants() - len(constants))
+        row = len(self.gate_instances)
+        for ci, wi in gate.extra_constant_wires():
+            self.constant_generators.append(
+                gen.ConstantGenerator(row, ci, wi, 0))
+        self.gates[gate.id()] = gate
+        self.gate_instances.append(GateInstance(gate, constants))
+        return row
+
+    def find_slot(self, gate, params: Sequence[int],
+                  constants: Sequence[int]) -> Tuple[int, int]:
+        """(row, op) of a free op of a ``gate`` row with these params
+        (circuit_builder.rs:824-853)."""
+        num_gates = self.num_gates()
+        self._slot_gates[gate.id()] = gate
+        slots = self.current_slots.setdefault(gate.id(), {})
+        key = tuple(int(x) % self.spec.p for x in params)
+        if key in slots:
+            gate_idx, slot_idx = slots[key]
+        else:
+            self.add_gate(gate, list(constants))
+            gate_idx, slot_idx = num_gates, 0
+        if slot_idx == gate.num_ops - 1:
+            slots.pop(key, None)
+        else:
+            slots[key] = (gate_idx, slot_idx + 1)
+        return gate_idx, slot_idx
+
+    # -- copy constraints and constants --------------------------------------
+
+    def connect(self, x: tgt.Target, y: tgt.Target):
+        assert tgt.is_routable(x, self.config.num_routed_wires), x
+        assert tgt.is_routable(y, self.config.num_routed_wires), y
+        self.copy_constraints.append((x, y))
+
+    def assert_equal(self, x, y):
+        self.connect(x, y)
+
+    def constant(self, c: int) -> tgt.Target:
+        c %= self.spec.p
+        if c in self.constants_to_targets:
+            return self.constants_to_targets[c]
+        t = self.add_virtual_target()
+        self.constants_to_targets[c] = t
+        self.targets_to_constants[t] = c
+        return t
+
+    def constants(self, cs: Sequence[int]) -> List[tgt.Target]:
+        return [self.constant(c) for c in cs]
+
+    def zero(self) -> tgt.Target:
+        return self.constant(0)
+
+    def one(self) -> tgt.Target:
+        return self.constant(1)
+
+    def two(self) -> tgt.Target:
+        return self.constant(2)
+
+    def neg_one(self) -> tgt.Target:
+        return self.constant(self.spec.p - 1)
+
+    def target_as_constant(self, t: tgt.Target) -> Optional[int]:
+        return self.targets_to_constants.get(t)
+
+    def add_simple_generator(self, g):
+        self.generators.append(g)
+
+    def generate_copy(self, src, dst):
+        self.add_simple_generator(gen.CopyGenerator(src, dst))
+
+    # -- arithmetic gadget (gadgets/arithmetic.rs) ---------------------------
+
+    def arithmetic(self, const_0: int, const_1: int, m0: tgt.Target,
+                   m1: tgt.Target, addend: tgt.Target) -> tgt.Target:
+        """const_0 * m0 * m1 + const_1 * addend."""
+        p = self.spec.p
+        const_0 %= p
+        const_1 %= p
+        special = self._arithmetic_special_cases(const_0, const_1, m0, m1,
+                                                 addend)
+        if special is not None:
+            return special
+        op = (const_0, const_1, m0, m1, addend)
+        if op in self.base_arithmetic_results:
+            return self.base_arithmetic_results[op]
+        result = self._add_base_arithmetic_operation(op)
+        self.base_arithmetic_results[op] = result
+        return result
+
+    def _arithmetic_special_cases(self, c0, c1, m0, m1, addend):
+        p = self.spec.p
+        # zero() places the 0 constant even when no case applies: the
+        # circuit (and its digest) has it whenever arithmetic is called
+        zero = self.zero()
+        mc0 = self.target_as_constant(m0)
+        mc1 = self.target_as_constant(m1)
+        ac = self.target_as_constant(addend)
+        first_zero = c0 == 0 or m0 == zero or m1 == zero
+        second_zero = c1 == 0 or addend == zero
+        first_const = 0 if first_zero else (
+            mc0 * mc1 % p * c0 % p if (mc0 is not None and mc1 is not None)
+            else None)
+        second_const = 0 if second_zero else (
+            ac * c1 % p if ac is not None else None)
+        if first_const is not None and second_const is not None:
+            return self.constant((first_const + second_const) % p)
+        if first_zero and c1 == 1:
+            return addend
+        if second_zero:
+            if mc0 is not None and mc0 * c0 % p == 1:
+                return m1
+            if mc1 is not None and mc1 * c0 % p == 1:
+                return m0
+        return None
+
+    def _add_base_arithmetic_operation(self, op) -> tgt.Target:
+        c0, c1, m0, m1, addend = op
+        gate = ArithmeticGate.from_config(self.config)
+        row, i = self.find_slot(gate, [c0, c1], [c0, c1])
+        w0, w1, wa, wo = ArithmeticGate.wires(i)
+        self.connect(m0, tgt.wire(row, w0))
+        self.connect(m1, tgt.wire(row, w1))
+        self.connect(addend, tgt.wire(row, wa))
+        return tgt.wire(row, wo)
+
+    def add(self, x, y):
+        # 1 * x * 1 + 1 * y (arithmetic.rs:197-202)
+        return self.arithmetic(1, 1, x, self.one(), y)
+
+    def sub(self, x, y):
+        return self.arithmetic(1, self.spec.p - 1, x, self.one(), y)
+
+    def mul(self, x, y):
+        # 1 * x * y + 0 * x: the addend is x, not zero (arithmetic.rs:
+        # 244-247), and the wiring is part of the digest
+        return self.arithmetic(1, 0, x, y, x)
+
+    def mul_add(self, x, y, z):
+        return self.arithmetic(1, 1, x, y, z)
+
+    def mul_sub(self, x, y, z):
+        return self.arithmetic(1, self.spec.p - 1, x, y, z)
+
+    def mul_const(self, c, x):
+        # routes a constant target (arithmetic.rs:180-183)
+        return self.mul(self.constant(c), x)
+
+    def mul_const_add(self, c, x, y):
+        return self.mul_add(self.constant(c), x, y)
+
+    def add_const(self, x, c):
+        return self.add(x, self.constant(c))
+
+    def square(self, x):
+        return self.mul(x, x)
+
+    def cube(self, x):
+        # the reference's mul_many([x, x, x]): one() * x * x * x
+        out = self.one()
+        for _ in range(3):
+            out = self.mul(out, x)
+        return out
+
+    def add_many(self, xs):
+        raise _not_ported("add_many (AddManyGate, the misc gates)", 4)
+
+    def mul_many(self, xs):
+        raise _not_ported("mul_many (with the misc gates)", 4)
+
+    def assert_zero(self, x):
+        self.connect(x, self.zero())
+
+    def assert_one(self, x):
+        self.connect(x, self.one())
+
+    # -- lookups (gadgets/lookup.rs:54-160): item 5 --------------------------
+
+    def add_lookup_table_from_pairs(self, *args):
+        raise _not_ported("lookups", 5)
+
+    add_lookup_table_from_table = add_lookup_table_from_fn = \
+        add_lookup_from_index = add_lookup_table_from_pairs
+
+    # -- hashing gadgets (plonk/config.rs:97-166) ----------------------------
+
+    def permute_swapped(self, state: Sequence[tgt.Target], swap: tgt.Target,
+                        hasher=None) -> List[tgt.Target]:
+        """One permutation-gate op: permute ``state``, the first two
+        digest-size chunks swapped when ``swap`` is 1 (Poseidon width 12
+        for Goldilocks, Poseidon2 width 16 for BabyBear)."""
+        self._check_hasher(hasher)
+        if self.spec.name == "goldilocks":
+            g = PoseidonGate()
+            row = self.add_gate(g, [])
+            self.connect(swap, tgt.wire(row, PoseidonGate.WIRE_SWAP))
+            for i, s in enumerate(state):
+                self.connect(s, tgt.wire(row, PoseidonGate.wire_input(i)))
+            return [tgt.wire(row, PoseidonGate.wire_output(i))
+                    for i in range(len(state))]
+        g = Poseidon2BabyBearGate.from_config(self.config)
+        row, op = self.find_slot(g, [], [])
+        self.connect(swap, tgt.wire(row, g.wire_swap(op)))
+        for i, s in enumerate(state):
+            self.connect(s, tgt.wire(row, g.wire_input(op, i)))
+        return [tgt.wire(row, g.wire_output(op, i))
+                for i in range(len(state))]
+
+    def permute(self, state: Sequence[tgt.Target],
+                hasher=None) -> List[tgt.Target]:
+        return self.permute_swapped(state, self.zero(), hasher)
+
+    def hash_n_to_m_no_pad(self, inputs: Sequence[tgt.Target],
+                           num_outputs: int,
+                           hasher=None) -> List[tgt.Target]:
+        """The overwrite-mode sponge in the circuit (config.rs:135-166)."""
+        self._check_hasher(hasher)
+        rate, width = self.hasher.RATE, self.hasher.WIDTH
+        state = [self.zero()] * width
+        for i in range(0, len(inputs), rate):
+            chunk = list(inputs[i:i + rate])
+            state = chunk + state[len(chunk):]
+            state = self.permute(state)
+        outputs: List[tgt.Target] = []
+        while True:
+            for s in state[:rate]:
+                outputs.append(s)
+                if len(outputs) == num_outputs:
+                    return outputs
+            state = self.permute(state)
+
+    def hash_n_to_hash_no_pad(self, inputs: Sequence[tgt.Target],
+                              hasher=None) -> List[tgt.Target]:
+        return self.hash_n_to_m_no_pad(inputs, self.spec.num_hash_out_elts,
+                                       hasher)
+
+    def hash_or_noop(self, inputs: Sequence[tgt.Target],
+                     hasher=None) -> List[tgt.Target]:
+        n = self.spec.num_hash_out_elts
+        if len(inputs) <= n:
+            return list(inputs) + [self.zero()] * (n - len(inputs))
+        return self.hash_n_to_hash_no_pad(inputs, hasher)
+
+    # -- build (circuit_builder.rs:1110-1360) --------------------------------
+
+    def build(self, device=None, timings: Optional[Dict[str, float]] = None,
+              commit_streaming: bool = False) -> CircuitData:
+        """Lay out, commit and index the circuit on ``device`` (the card
+        unless the caller asks for the CPU).  ``timings`` gets the seconds
+        of ``gates_and_routing``, ``sigmas``, ``commit`` and ``digest``."""
+        dev = devmod.resolve(device)
+        config = self.config
+        if commit_streaming:
+            raise _not_ported("the streaming commit", 9)
+        if config.zero_knowledge:
+            raise _not_ported("zero knowledge (blinding rows and salts)", 5)
+        if self.goal_common_data is not None:
+            raise _not_ported("cyclic recursion (goal_common_data)", 4)
+        spec = self.spec
+        p = spec.p
+        rate_bits = config.fri_config.rate_bits
+        cap_height = config.fri_config.cap_height
+
+        with phase(timings, "gates_and_routing", dev):
+            num_public_inputs = len(self.public_inputs)
+            # the public inputs hashed in the circuit (circuit_builder.rs:
+            # 1129-1139); no inputs squeeze the zero state, no gates
+            pi_hash_targets = self.hash_n_to_m_no_pad(
+                self.public_inputs, spec.num_hash_out_elts)
+            pi_gate = self.add_gate(PublicInputGate(spec.num_hash_out_elts),
+                                    [])
+            for i, t in enumerate(pi_hash_targets):
+                self.connect(t, tgt.wire(pi_gate, i))
+
+            # complete the partly used slot gates that zeros do not satisfy
+            # (circuit_builder.rs:1082)
+            for gate_id, slots in list(self.current_slots.items()):
+                gate = self._slot_gates[gate_id]
+                for params, (gate_idx, slot_idx) in list(slots.items()):
+                    if gate.complete_wires(self, gate_idx, slot_idx):
+                        slots.pop(params, None)
+
+            # anti-#456 randomization (circuit_builder.rs:1064-1080)
+            random_wire = None
+            for w in range(spec.num_hash_out_elts, config.num_wires):
+                if w == config.num_wires - 1:
+                    random_wire = (pi_gate, w)
+                self.add_simple_generator(
+                    gen.RandomValueGenerator(tgt.wire(pi_gate, w), p))
+
+            # constant gates and their routing (circuit_builder.rs:1145-1172)
+            while len(self.constants_to_targets) > \
+                    len(self.constant_generators):
+                self.add_gate(ConstantGate(config.num_constants), [])
+            pairs = sorted(self.constants_to_targets.items(),
+                           key=lambda kv: kv[0])
+            for (c, t), cg in zip(pairs, self.constant_generators):
+                self.gate_instances[cg.row].constants[cg.constant_index] = c
+                self.connect(tgt.wire(cg.row, cg.wire_index), t)
+                cg.constant = c
+                self.add_simple_generator(cg)
+
+            # pad to a power of two (circuit_builder.rs:924-980)
+            while len(self.gate_instances) & (len(self.gate_instances) - 1):
+                self.add_gate(NoopGate(), [])
+
+            degree = len(self.gate_instances)
+            degree_bits = host.log2_strict(degree)
+            fri_params = config.fri_config.fri_params(degree_bits, False)
+            assert fri_params.total_arities() <= \
+                degree_bits + rate_bits - cap_height, \
+                "FRI total reduction arity is too large."
+
+            quotient_degree_factor = config.max_quotient_degree_factor
+            gates = sorted(self.gates.values(),
+                           key=lambda g: (g.degree(), g.id()))
+            selector_polys, selectors_info = \
+                selectors_mod.selector_polynomials(
+                    gates, self.gate_instances, quotient_degree_factor + 1, p)
+            constant_vecs = list(selector_polys) + self._constant_polys(gates)
+
+        with phase(timings, "sigmas", dev):
+            subgroup = host.two_adic_subgroup(spec, degree_bits)
+            k_is = host.get_unique_coset_shifts(spec, degree,
+                                                config.num_routed_wires)
+            sigma_vecs, forest = self._sigma_vecs(k_is, subgroup)
+            constants_sigmas = np.stack(
+                [np.asarray(v, dtype=np.uint64) for v in constant_vecs]
+                + list(sigma_vecs))
+
+            # the gate generators, less the unused ops of slot gates
+            # (circuit_builder.rs:1252-1267)
+            incomplete = {}
+            for slots in self.current_slots.values():
+                for gate_idx, op in slots.values():
+                    incomplete[gate_idx] = op
+            for row, inst in enumerate(self.gate_instances):
+                gens = inst.gate.generators(row, inst.constants, spec)
+                if row in incomplete:
+                    gens = gens[:incomplete[row]]
+                self.generators.extend(gens)
+
+            # the generators watching each representative, each once, in
+            # list order
+            by_watches: Dict[int, List[int]] = {}
+            parents = forest.parents
+            for i, g in enumerate(self.generators):
+                for watch in g.watch_list():
+                    rep = int(parents[forest.target_index(watch)])
+                    watchers = by_watches.setdefault(rep, [])
+                    if i not in watchers[-1:]:
+                        watchers.append(i)
+
+        with phase(timings, "commit", dev):
+            cs_values = self.F.from_ints(constants_sigmas, dev)
+            commitment = PolynomialBatch.from_values(
+                cs_values, rate_bits, cap_height, self.F, self.hasher)
+            cap = commitment.cap_host()
+
+        with phase(timings, "digest", dev):
+            # cap, the domain separator's hash and degree_bits
+            # (circuit_builder.rs:1300-1320)
+            circuit_digest = self.hasher.hash_no_pad_host(
+                [x for row in cap for x in row]
+                + self._hash_pad(self.domain_separator) + [degree_bits])
+
+        common = CommonCircuitData(
+            config=config, fri_params=fri_params, gates=gates,
+            selectors_info=selectors_info,
+            quotient_degree_factor=quotient_degree_factor,
+            num_gate_constraints=max(g.num_constraints() for g in gates),
+            num_constants=len(constant_vecs),
+            num_public_inputs=num_public_inputs, k_is=k_is,
+            num_partial_products=(
+                -(-config.num_routed_wires // quotient_degree_factor) - 1),
+            spec=spec)
+        prover_only = ProverOnlyCircuitData(
+            generators=self.generators,
+            generator_indices_by_watches=by_watches,
+            constants_sigmas_values=cs_values,
+            constants_sigmas_commitment=commitment,
+            public_inputs=self.public_inputs,
+            representative_map=forest.parents,
+            circuit_digest=circuit_digest, random_wire=random_wire)
+        verifier_only = VerifierOnlyCircuitData(
+            constants_sigmas_cap=cap, circuit_digest=circuit_digest)
+        return CircuitData(common=common, prover_only=prover_only,
+                           verifier_only=verifier_only, device=dev,
+                           F=self.F, hasher=self.hasher)
+
+    def _hash_pad(self, inputs: List[int]) -> List[int]:
+        """pad10*1, then hash (plonk/config.rs:58-66)."""
+        padded = list(inputs) + [1]
+        rate = self.hasher.RATE
+        while (len(padded) + 1) % rate != 0:
+            padded.append(0)
+        padded.append(1)
+        return self.hasher.hash_no_pad_host(padded)
+
+    def _constant_polys(self, gates) -> List[np.ndarray]:
+        max_constants = max(g.num_constants() for g in gates)
+        mat = np.zeros((max_constants, len(self.gate_instances)),
+                       dtype=np.uint64)
+        for row, inst in enumerate(self.gate_instances):
+            for i, c in enumerate(inst.constants):
+                mat[i, row] = c
+        return list(mat)
+
+    def _sigma_vecs(self, k_is, subgroup):
+        config = self.config
+        degree = len(self.gate_instances)
+        forest = Forest(config.num_wires, config.num_routed_wires, degree,
+                        self.virtual_target_index)
+        for a, b in self.copy_constraints:
+            forest.merge(a, b)
+        forest.compress_paths()
+        wp = forest.wire_partition()
+        return (wp.get_sigma_polys(host.log2_strict(degree), k_is, subgroup,
+                                   self.spec.p), forest)
+
+
+# extension arithmetic (gadgets/arithmetic_extension.rs, iop/ext_target.rs)
+_EXTENSION_OPS = (
+    "add_virtual_extension_target", "add_virtual_extension_targets",
+    "constant_extension", "zero_extension", "one_extension",
+    "convert_to_ext", "connect_extension", "target_as_constant_ext",
+    "arithmetic_extension", "mul_extension_with_const", "add_extension",
+    "sub_extension", "mul_extension", "square_extension", "cube_extension",
+    "mul_add_extension", "mul_sub_extension", "mul_const_extension",
+    "mul_const_add_extension", "add_const_extension", "scalar_mul_ext",
+    "scalar_mul_add_extension", "scalar_mul_sub_extension",
+    "add_many_extension", "mul_many_extension", "exp_u64_extension",
+    "div_add_extension", "div_extension", "inverse_extension")
+
+
+def _extension_op(name):
+    def op(self, *args, **kwargs):
+        raise _not_ported(f"extension arithmetic ({name})", 4)
+    op.__name__ = name
+    return op
+
+
+for _name in _EXTENSION_OPS:
+    setattr(CircuitBuilder, _name, _extension_op(_name))

@@ -1,23 +1,30 @@
-"""Circuit data and the carry-across loader (reference
+"""Circuit data, built or carried across (reference
 plonky2/src/plonk/circuit_data.rs:191-740).
 
-The port does not build circuits yet: a circuit and its witness reach it as
-data.  ``load_circuit`` takes the constants/sigmas values, the full wire
-matrix, the public inputs and the circuit metadata (field, config, FRI
-arities, gate ids, selector layout, coset shifts, digest, random wire),
-commits the constants/sigmas itself and returns a ``Circuit`` ready to
-prove.  The metadata's ``field`` ("goldilocks", the default, or
-"babybear") picks the field module, its extension and the hasher once:
-Goldilocks with Poseidon-GL, or BabyBear (Montgomery form) with
-Poseidon2-BB.  ``load_fixture`` reads the same data from a fixture file
-written by ``tests/test_torch_prove.py --write-fixtures``.
+A circuit reaches the prover, ``plonk/prover.py:prove``, as a ``Circuit``:
+the circuit and its witness on one device.  Two routes make one:
+
+- ``plonk/builder.py:CircuitBuilder.build()`` returns a ``CircuitData``
+  (common data, prover-only data with the generators, verifier-only data);
+  ``CircuitData.circuit(pw, rng)`` runs witness generation and moves the
+  wire matrix to the device, and ``CircuitData.prove(pw, rng)`` proves it.
+- ``load_circuit`` takes the constants/sigmas values, the full wire matrix,
+  the public inputs and the circuit metadata (field, config, FRI arities,
+  gate ids, selector layout, coset shifts, digest, random wire) as data,
+  commits the constants/sigmas itself and returns a ``Circuit``.
+  ``load_fixture`` reads the same data from a fixture file written by the
+  JAX package (``tests/test_torch_prove.py --write-fixtures``).
+
+The field name ("goldilocks", the default, or "babybear") picks the field
+module, its extension and the hasher once: Goldilocks with Poseidon-GL, or
+BabyBear (Montgomery form) with Poseidon2-BB.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,7 +36,11 @@ from ..fri.oracle import PolynomialBatch
 from ..gates import gate_from_id
 from ..gates.selectors import SelectorsInfo
 from ..hash import poseidon2_bb, poseidon_gl
-from .config import CircuitConfig, FriConfig, FriParams
+from ..iop.generator import Rng, generate_partial_witness
+from . import prover
+from .config import (CircuitConfig, FriConfig, FriParams,
+                     FriReductionStrategy)
+from .witness_transfer import WitnessTransfer
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
@@ -156,9 +167,10 @@ class CommonCircuitData:
 
 @dataclass
 class Circuit:
-    """A loaded circuit with its witness, on one device, with the field
-    module ``F``, its extension ``E`` and the ``hasher`` it is proved
-    with."""
+    """A circuit with its witness, on one device, with the field module
+    ``F``, its extension ``E`` and the ``hasher`` it is proved with;
+    ``cache`` holds the prover's circuit-static tensors (shared by the
+    circuits one ``CircuitData`` makes)."""
     common: CommonCircuitData
     constants_sigmas_values: torch.Tensor     # (num_preprocessed, degree)
     constants_sigmas_commitment: PolynomialBatch
@@ -169,6 +181,7 @@ class Circuit:
     device: torch.device
     F: object = gl
     hasher: object = poseidon_gl
+    cache: Dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def E(self) -> ext.ExtOps:
@@ -202,10 +215,15 @@ def _common_from_meta(meta: Dict, spec: host.FieldSpec
             num_query_rounds=fc["num_query_rounds"]))
     if config.zero_knowledge:
         raise ValueError("zero-knowledge circuits are not ported yet")
-    fri_params = FriParams(
-        config=config.fri_config, hiding=False,
-        degree_bits=meta["degree_bits"],
-        reduction_arity_bits=tuple(meta["reduction_arity_bits"]))
+    # the metadata holds the arities, not the strategy: its arity is theirs
+    arities = tuple(meta["reduction_arity_bits"])
+    if arities:
+        config = replace(config, fri_config=replace(
+            config.fri_config,
+            reduction_strategy=FriReductionStrategy(arity_bits=arities[0])))
+    fri_params = FriParams(config=config.fri_config, hiding=False,
+                           degree_bits=meta["degree_bits"],
+                           reduction_arity_bits=arities)
     return CommonCircuitData(
         config=config, fri_params=fri_params,
         gates=[gate_from_id(g) for g in meta["gates"]],
@@ -257,6 +275,47 @@ def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
         device=dev, F=F, hasher=hasher)
 
 
+def circuit_meta(data, field: str) -> dict:
+    """The metadata ``load_circuit`` reads, of a built ``CircuitData`` of
+    ``field``: the port's, or the JAX package's (the fixture writers)."""
+    common = data.common
+    cfg = common.config
+    fc = cfg.fri_config
+    po = data.prover_only
+    return {
+        "field": field,
+        "config": {
+            "num_wires": cfg.num_wires,
+            "num_routed_wires": cfg.num_routed_wires,
+            "num_constants": cfg.num_constants,
+            "use_base_arithmetic_gate": cfg.use_base_arithmetic_gate,
+            "security_bits": cfg.security_bits,
+            "num_challenges": cfg.num_challenges,
+            "zero_knowledge": cfg.zero_knowledge,
+            "max_quotient_degree_factor": cfg.max_quotient_degree_factor,
+        },
+        "fri_config": {
+            "rate_bits": fc.rate_bits,
+            "cap_height": fc.cap_height,
+            "proof_of_work_bits": fc.proof_of_work_bits,
+            "num_query_rounds": fc.num_query_rounds,
+        },
+        "reduction_arity_bits": list(common.fri_params.reduction_arity_bits),
+        "degree_bits": common.degree_bits,
+        "gates": [g.id() for g in common.gates],
+        "selector_indices": list(common.selectors_info.selector_indices),
+        "selector_groups": [list(g) for g in common.selectors_info.groups],
+        "k_is": [int(k) for k in common.k_is],
+        "num_partial_products": common.num_partial_products,
+        "quotient_degree_factor": common.quotient_degree_factor,
+        "num_gate_constraints": common.num_gate_constraints,
+        "num_constants": common.num_constants,
+        "num_public_inputs": common.num_public_inputs,
+        "circuit_digest": [int(v) for v in po.circuit_digest],
+        "random_wire": [int(v) for v in po.random_wire],
+    }
+
+
 def read_fixture(path: str):
     """(arrays, meta) of a fixture file."""
     with np.load(path) as z:
@@ -271,3 +330,69 @@ def load_fixture(degree_bits: int, device="cuda", field: str = "goldilocks"):
     keys)."""
     arrays, meta = read_fixture(fixture_path(degree_bits, field))
     return load_circuit(arrays, meta, device), arrays
+
+
+# -- built circuits ---------------------------------------------------------
+
+
+@dataclass
+class VerifierOnlyCircuitData:
+    constants_sigmas_cap: List[List[int]]
+    circuit_digest: List[int]
+
+
+@dataclass
+class ProverOnlyCircuitData:
+    generators: List
+    generator_indices_by_watches: Dict[int, List[int]]
+    constants_sigmas_values: torch.Tensor    # (num_preprocessed, degree)
+    constants_sigmas_commitment: PolynomialBatch
+    public_inputs: List                      # targets
+    representative_map: np.ndarray
+    circuit_digest: List[int]
+    random_wire: Optional[Tuple[int, int]]   # (row, column)
+
+
+@dataclass
+class CircuitData:
+    """A circuit built by ``CircuitBuilder.build`` on ``device`` (reference
+    circuit_data.rs:191-260)."""
+    common: CommonCircuitData
+    prover_only: ProverOnlyCircuitData
+    verifier_only: VerifierOnlyCircuitData
+    device: torch.device
+    F: object = gl
+    hasher: object = poseidon_gl
+    cache: Dict = field(default_factory=dict, repr=False, compare=False)
+
+    def circuit(self, pw, rng: Rng) -> Circuit:
+        """The circuit with the witness of the partial witness ``pw``:
+        witness generation on the host, drawing from ``rng``, then the wire
+        matrix on the device."""
+        po = self.prover_only
+        witness = generate_partial_witness(pw, po, self.common, rng)
+        return Circuit(
+            common=self.common,
+            constants_sigmas_values=po.constants_sigmas_values,
+            constants_sigmas_commitment=po.constants_sigmas_commitment,
+            wires=WitnessTransfer.from_witness(
+                self.F, witness, self.device).device_values(),
+            public_inputs=witness.get_targets(po.public_inputs),
+            circuit_digest=po.circuit_digest, random_wire=po.random_wire,
+            device=self.device, F=self.F, hasher=self.hasher,
+            cache=self.cache)
+
+    def prove(self, pw, rng: Optional[Rng] = None,
+              timings: Optional[Dict[str, float]] = None):
+        """Witness generation, then the prover (reference
+        plonk/prover.rs:136-230).  Both draw from ``rng`` (a
+        ``NonRandomRng`` for the reference's deterministic draws, else a
+        numpy generator, fresh from the OS when none is given), so the
+        permutation-argument retry goes on from where witness generation
+        left it.  ``timings`` gets ``witness_generation`` beside the
+        prover's phases."""
+        if rng is None:
+            rng = np.random.default_rng()
+        with prover.phase(timings, "witness_generation", self.device):
+            circuit = self.circuit(pw, rng)
+        return prover.prove(circuit, self.device, timings, rng)

@@ -1,16 +1,36 @@
 """Circuit / FRI configuration (reference plonky2/src/plonk/circuit_data.rs:
-55-190, fri/mod.rs:26-115).
+55-190, fri/mod.rs:26-115, fri/reduction_strategies.rs:11-56).
 
-The port receives a circuit's configuration with the circuit itself
-(``circuit_data.load_circuit``), FRI reduction arities included, so it
-keeps no arity strategy.  The presets of the two fields' recursion configs
-(reference circuit_data.rs:102-187) name what a loaded circuit is held to.
+The builder takes the FRI reduction arities from the config's strategy
+(``FriConfig.fri_params``); a loaded circuit brings them in its metadata.
+The presets are the two fields' recursion configs (reference
+circuit_data.rs:102-187): FRI arity 2^4 for Goldilocks, 2^3 for BabyBear.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Tuple
+from typing import List, Tuple
+
+
+@dataclass(frozen=True)
+class FriReductionStrategy:
+    """The reference's ``ConstantArityBits(arity_bits, final_poly_bits)``
+    (fri/reduction_strategies.rs:11-56), the presets' strategy."""
+
+    arity_bits: int = 4
+    final_poly_bits: int = 5
+
+    def reduction_arity_bits(self, degree_bits: int, rate_bits: int,
+                             cap_height: int) -> List[int]:
+        out = []
+        db = degree_bits
+        while (db > self.final_poly_bits
+               and db + rate_bits - self.arity_bits >= cap_height):
+            assert db >= self.arity_bits
+            out.append(self.arity_bits)
+            db -= self.arity_bits
+        return out
 
 
 @dataclass(frozen=True)
@@ -19,6 +39,14 @@ class FriConfig:
     cap_height: int
     proof_of_work_bits: int
     num_query_rounds: int
+    reduction_strategy: FriReductionStrategy = FriReductionStrategy()
+
+    def fri_params(self, degree_bits: int, hiding: bool) -> "FriParams":
+        return FriParams(
+            config=self, hiding=hiding, degree_bits=degree_bits,
+            reduction_arity_bits=tuple(
+                self.reduction_strategy.reduction_arity_bits(
+                    degree_bits, self.rate_bits, self.cap_height)))
 
 
 @dataclass(frozen=True)
@@ -36,9 +64,12 @@ class FriParams:
     def lde_size(self) -> int:
         return 1 << self.lde_bits
 
+    def total_arities(self) -> int:
+        return sum(self.reduction_arity_bits)
+
     @property
     def final_poly_len(self) -> int:
-        return 1 << (self.degree_bits - sum(self.reduction_arity_bits))
+        return 1 << (self.degree_bits - self.total_arities())
 
 
 @dataclass(frozen=True)
@@ -56,21 +87,23 @@ class CircuitConfig:
     # -- presets (reference circuit_data.rs:102-187) ------------------------
 
     @staticmethod
-    def _standard_base() -> "CircuitConfig":
+    def _standard_base(arity_bits: int = 3) -> "CircuitConfig":
         return CircuitConfig(
             num_wires=0, num_routed_wires=80, num_constants=2,
             use_base_arithmetic_gate=True, security_bits=100,
             num_challenges=0, zero_knowledge=False,
             max_quotient_degree_factor=8,
-            fri_config=FriConfig(rate_bits=3, cap_height=4,
-                                 proof_of_work_bits=16,
-                                 num_query_rounds=28))
+            fri_config=FriConfig(
+                rate_bits=3, cap_height=4, proof_of_work_bits=16,
+                num_query_rounds=28,
+                reduction_strategy=FriReductionStrategy(
+                    arity_bits=arity_bits, final_poly_bits=5)))
 
     @staticmethod
     def standard_recursion_config_gl() -> "CircuitConfig":
         """135 wires, 80 routed, 2 challenges (FRI arity 2^4)."""
-        return replace(CircuitConfig._standard_base(), num_wires=135,
-                       num_challenges=2)
+        return replace(CircuitConfig._standard_base(arity_bits=4),
+                       num_wires=135, num_challenges=2)
 
     @staticmethod
     def recursion_config_bb_narrow() -> "CircuitConfig":

@@ -29,6 +29,7 @@ from ..hash.challenger import Challenger
 from ..iop.generator import Rng, rand_field_element
 from . import vanishing
 from .proof import OpeningSet, Proof, ProofWithPublicInputs
+from .witness_transfer import WitnessTransfer
 
 MAX_PERM_ARG_RETRIES = 3
 
@@ -38,7 +39,9 @@ class InvZeroPermArg(Exception):
 
 
 @contextmanager
-def _phase(timings: Optional[Dict[str, float]], name: str, device):
+def phase(timings: Optional[Dict[str, float]], name: str, device):
+    """Add the seconds of the block, ended by a device synchronise, to
+    ``timings[name]`` when ``timings`` is a dict."""
     t0 = time.perf_counter()
     yield
     if timings is not None:
@@ -49,18 +52,21 @@ def _phase(timings: Optional[Dict[str, float]], name: str, device):
 
 def prove(circuit, device=None, timings: Optional[Dict[str, float]] = None,
           rng: Optional[Rng] = None) -> ProofWithPublicInputs:
-    """Prove ``circuit`` (a ``circuit_data.Circuit``) on ``device`` (the
-    card unless the caller asks for the CPU).  On a permutation-argument
+    """Prove ``circuit`` (a ``circuit_data.Circuit``: its wires came either
+    as data through ``load_circuit`` or from witness generation through
+    ``CircuitData.circuit``) on ``device`` (the card unless the caller asks
+    for the CPU).  On a permutation-argument
     division by zero the random wire of the public-input gate is drawn
     again, ``rand_field_element(p, rng)`` (``iop/generator.py``: a
     ``NonRandomRng`` for the reference's deterministic draws, else a numpy
     generator, fresh from the OS when none is given), and the proof
-    retried (reference prover.rs:136-230, the anti-#456 loop)."""
+    retried (reference prover.rs:136-230, the anti-#456 loop); the
+    circuit's own wires stay as they were."""
     dev = devmod.resolve(device)
     if dev != circuit.device:
         raise ValueError(f"circuit was loaded on {circuit.device}, "
                          f"not {dev}")
-    wires = circuit.wires
+    wires = WitnessTransfer(circuit.F, circuit.wires)
     for retry in range(MAX_PERM_ARG_RETRIES):
         if retry:
             assert circuit.random_wire is not None, \
@@ -68,11 +74,9 @@ def prove(circuit, device=None, timings: Optional[Dict[str, float]] = None,
             if rng is None:
                 rng = np.random.default_rng()
             row, col = circuit.random_wire
-            wires = wires.clone()
-            wires[col, row] = circuit.F.from_ints(
-                [rand_field_element(circuit.F.P, rng)], circuit.device)[0]
+            wires.set(row, col, rand_field_element(circuit.F.P, rng))
         try:
-            return _internal_prove(circuit, wires, timings)
+            return _internal_prove(circuit, wires.device_values(), timings)
         except InvZeroPermArg:
             continue
     raise InvZeroPermArg("too many permutation argument failures")
@@ -147,10 +151,9 @@ class _QuotientData:
 
 
 def _quotient_data(circuit) -> _QuotientData:
-    q = getattr(circuit, "_quotient_data", None)
+    q = circuit.cache.get("quotient_data")
     if q is None:
-        q = _QuotientData(circuit)
-        circuit._quotient_data = q
+        q = circuit.cache["quotient_data"] = _QuotientData(circuit)
     return q
 
 
@@ -250,7 +253,7 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
         return PolynomialBatch.from_values(values, rate_bits, cap_height, F,
                                            hasher)
 
-    with _phase(timings, "wires_commit", dev):
+    with phase(timings, "wires_commit", dev):
         wires_commitment = commit_values(wires_values)
         wires_cap = wires_commitment.cap_host()
 
@@ -261,7 +264,7 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
     betas = challenger.get_n_challenges(nch)
     gammas = challenger.get_n_challenges(nch)
 
-    with _phase(timings, "partial_products", dev):
+    with phase(timings, "partial_products", dev):
         zs_pp, any_zero = partial_products(
             F, common, wires_values[:config.num_routed_wires], qd.s_id,
             circuit.sigmas, _scalars(F, betas, dev),
@@ -269,20 +272,20 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
         if bool(any_zero):
             raise InvZeroPermArg()
 
-    with _phase(timings, "zs_pp_commit", dev):
+    with phase(timings, "zs_pp_commit", dev):
         zs_pp_commitment = commit_values(zs_pp)
         zs_pp_cap = zs_pp_commitment.cap_host()
     challenger.observe_cap(zs_pp_cap)
     alphas = challenger.get_n_challenges(nch)
 
-    with _phase(timings, "quotient", dev):
+    with phase(timings, "quotient", dev):
         chunks = quotient_chunks(
             circuit, qd, circuit.constants_sigmas_commitment.lde,
             wires_commitment.lde, zs_pp_commitment.lde,
             _scalars(F, public_inputs_hash, dev), _scalars(F, betas, dev),
             _scalars(F, gammas, dev), _scalars(F, alphas, dev))
 
-    with _phase(timings, "quotient_commit", dev):
+    with phase(timings, "quotient_commit", dev):
         quotient_commitment = PolynomialBatch(chunks, rate_bits, cap_height,
                                               F, hasher)
         quotient_cap = quotient_commitment.cap_host()
@@ -294,7 +297,7 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
     oracles = [circuit.constants_sigmas_commitment, wires_commitment,
                zs_pp_commitment, quotient_commitment]
 
-    with _phase(timings, "openings", dev):
+    with phase(timings, "openings", dev):
         openings = opening_set(F, circuit.E, common, zeta, oracles)
     fri_openings = openings.to_fri_openings()
     for batch_vals in fri_openings:

@@ -173,63 +173,20 @@ def test_load_circuit_rejects_unported_gate():
 
 
 def _build_arith_chain(config, target_degree_bits, spec=None):
-    """The ArithmeticGate chain of ``bench.py:_build_arith_chain``: one
-    public input, a chain of x*x + x ops filling 2^target_degree_bits rows
-    less a few for the public-input hash, constants and padding."""
+    """The JAX package's build of ``circuits.arith_chain``: one public
+    input, a chain of x*x + x ops filling 2^target_degree_bits rows less a
+    few for the public-input hash, constants and padding."""
     from plonky2_goldibear_tpu.plonk.builder import CircuitBuilder
+
+    from plonky2_goldibear_torch.circuits import arith_chain
 
     builder = (CircuitBuilder(config) if spec is None
                else CircuitBuilder(config, spec=spec))
-    x = builder.add_virtual_target()
-    builder.register_public_input(x)
-    cur = x
-    ops_per_gate = config.num_routed_wires // 4
-    for _ in range(((1 << target_degree_bits) - 8) * ops_per_gate):
-        cur = builder.arithmetic(1, 1, cur, cur, cur)
-    builder.register_public_input(cur)
+    x = arith_chain(builder, target_degree_bits)
     data = builder.build()
     assert data.common.degree_bits == target_degree_bits, \
         data.common.degree_bits
     return data, x
-
-
-def _circuit_meta(data, field: str) -> dict:
-    common = data.common
-    cfg = common.config
-    fc = cfg.fri_config
-    po = data.prover_only
-    return {
-        "field": field,
-        "config": {
-            "num_wires": cfg.num_wires,
-            "num_routed_wires": cfg.num_routed_wires,
-            "num_constants": cfg.num_constants,
-            "use_base_arithmetic_gate": cfg.use_base_arithmetic_gate,
-            "security_bits": cfg.security_bits,
-            "num_challenges": cfg.num_challenges,
-            "zero_knowledge": cfg.zero_knowledge,
-            "max_quotient_degree_factor": cfg.max_quotient_degree_factor,
-        },
-        "fri_config": {
-            "rate_bits": fc.rate_bits,
-            "cap_height": fc.cap_height,
-            "proof_of_work_bits": fc.proof_of_work_bits,
-            "num_query_rounds": fc.num_query_rounds,
-        },
-        "reduction_arity_bits": list(common.fri_params.reduction_arity_bits),
-        "degree_bits": common.degree_bits,
-        "gates": [g.id() for g in common.gates],
-        "selector_indices": list(common.selectors_info.selector_indices),
-        "selector_groups": [list(g) for g in common.selectors_info.groups],
-        "k_is": [int(k) for k in common.k_is],
-        "num_partial_products": common.num_partial_products,
-        "quotient_degree_factor": common.quotient_degree_factor,
-        "num_gate_constraints": common.num_gate_constraints,
-        "num_constants": common.num_constants,
-        "num_public_inputs": common.num_public_inputs,
-        "circuit_digest": [int(v) for v in po.circuit_digest],
-        "random_wire": [int(v) for v in po.random_wire],
-    }
 
 
 def write_fixture(degree_bits: int, path: str,
@@ -255,6 +212,7 @@ def write_fixture(degree_bits: int, path: str,
     from plonky2_goldibear_tpu.plonk.witness_transfer import WitnessTransfer
     from plonky2_goldibear_tpu.utils.timing import ProvingProcessInfo
 
+    from plonky2_goldibear_torch.plonk.circuit_data import circuit_meta
     from plonky2_goldibear_torch.plonk.proof import flatten_proof
 
     t0 = time.time()
@@ -294,7 +252,7 @@ def write_fixture(degree_bits: int, path: str,
         [int(v) for v in public_inputs]
     for k, v in flat_sync.items():
         arrays["proof_" + k] = v
-    meta = json.dumps(_circuit_meta(data, field))
+    meta = json.dumps(circuit_meta(data, field))
     np.savez_compressed(path, meta=np.array(meta), **arrays)
     print(f"wrote {path} ({os.path.getsize(path)} bytes) after "
           f"{time.time() - t0:.0f} s", flush=True)
@@ -340,7 +298,8 @@ def write_retry_fixture(degree_bits: int, path: str,
     from plonky2_goldibear_tpu.plonk.verifier import verify
     from plonky2_goldibear_tpu.utils.timing import ProvingProcessInfo
 
-    from plonky2_goldibear_torch.plonk.circuit_data import (fixture_path,
+    from plonky2_goldibear_torch.plonk.circuit_data import (circuit_meta,
+                                                            fixture_path,
                                                             read_fixture)
     from plonky2_goldibear_torch.plonk.proof import flatten_proof
 
@@ -356,7 +315,7 @@ def write_retry_fixture(degree_bits: int, path: str,
         data, x = _build_arith_chain(
             CircuitConfig.standard_recursion_config_gl(), degree_bits)
     base, base_meta = read_fixture(fixture_path(degree_bits, field))
-    meta = _circuit_meta(data, field)
+    meta = circuit_meta(data, field)
     assert meta["circuit_digest"] == base_meta["circuit_digest"], \
         "the circuit differs from the committed fixture's"
     pw = PartialWitness()
