@@ -50,6 +50,15 @@
    wall time of the 3 unprofiled proves (the profiled prove's own wall
    time, which the profiler lengthens, is printed beside it).
 
+5. the verifier (``plonk/verifier.py``, on the host; it launches no
+   kernel): every proof phase 4 made on the card (2^6 built and loaded,
+   each with its retry, and 2^12 timed and whole, both fields) and the
+   reference's own 2^14 recursive-verifier proof read from
+   ``tests/data/gl_regression_{common,verifier,proof}.bin`` must verify,
+   and a copy of each with one wire opening changed must be rejected.
+   ``verify_s`` (host seconds, median of 3) of the 2^14 proof and of each
+   field's 2^12 proof is printed on its own line.
+
 Between 3 and 4, the probe phase: each dependent-chain probe kernel
 (``ops/probes.py``: GL multiply, squaring, two x^7 S-boxes, u32 multiply,
 multiply-and-mask, add, f32 FMA) is held against its plain version at a
@@ -98,6 +107,7 @@ PROFILE_TOP = 25              # kernels printed per profiled prove
 MAIN_BITS = 12                # the benchmark circuit: 2^12 rows
 PRESETS = {"goldilocks": "standard_recursion_config_gl",
            "babybear": "standard_recursion_config_bb"}
+RUST_PROOF = "tests/data/gl_regression_{}.bin"   # the reference's 2^14 proof
 SMALL_BITS = 6                # a second fixture: small trees, mostly tail
 # Merkle trees checked besides the prove's: FRI layers to a cap of 16 and
 # a tree to its root (one subtree for the tail)
@@ -262,6 +272,55 @@ def _profile(fn, wall_ms_unprofiled: float):
             "kernels": [{"name": k, "launches": n, "ms": ms}
                         for k, (n, ms) in sorted(per.items(),
                                                  key=lambda kv: -kv[1][1])]}
+
+
+def phase_verify(made, failures) -> dict:
+    """Verify each (label, proof, verifier data, common data) of ``made``
+    and the reference's 2^14 proof, and reject a copy of each with one
+    wire opening changed; ``verify_s`` of the 2^14 proof and of the 2^12
+    proofs timed 3 times: {label: {"median": s, "all": [s, ...]}}."""
+    import copy
+
+    from plonky2_goldibear_torch.plonk import serialization as ser
+    from plonky2_goldibear_torch.plonk.verifier import (VerificationError,
+                                                        verify)
+
+    def blob(part):
+        with open(os.path.join(ROOT, RUST_PROOF.format(part)), "rb") as f:
+            return f.read()
+
+    common = ser.read_common_circuit_data(blob("common"))
+    rust = ("rust_gl_2e14", ser.read_proof_with_public_inputs(
+        blob("proof"), common), ser.read_verifier_only_circuit_data(
+        blob("verifier")), common)
+    verify_s, results = {}, {}
+    for label, proof, vk, common in made + [rust]:
+        timed = label == "rust_gl_2e14" or label.endswith(f"_2e{MAIN_BITS}")
+        times = []
+        try:
+            for _ in range(3 if timed else 1):
+                t0 = time.perf_counter()
+                verify(proof, vk, common)
+                times.append(time.perf_counter() - t0)
+        except VerificationError as e:
+            failures.append(f"verify {label}: rejected: {e}")
+            results[label] = "rejected"
+            continue
+        bad = copy.deepcopy(proof)
+        wires = bad.proof.openings.wires
+        wires[0] = ((wires[0][0] + 1) % common.spec.p,) + tuple(wires[0][1:])
+        try:
+            verify(bad, vk, common)
+            failures.append(f"verify {label}: a tampered copy was accepted")
+            results[label] = "tampered copy accepted"
+        except VerificationError:
+            results[label] = "verified; tampered copy rejected"
+        if timed:
+            verify_s[label] = {"median": statistics.median(times),
+                               "all": times}
+    for label, result in results.items():
+        print(f"verify {label}: {result}")
+    return verify_s
 
 
 def main() -> int:
@@ -671,6 +730,7 @@ def main() -> int:
             failures.append(f"{field} 2^{bits} {label} retry: redrawn "
                             f"{seen[1:]}, the JAX retry {want}")
         check_proof(field, f"{bits}_{label}_retry", proof, arrays)
+        return proof
 
     def built(field, bits, reps=1):
         """Build the chain of 2^bits rows on the card ``reps`` times (the
@@ -753,22 +813,34 @@ def main() -> int:
                      "babybear": ("ntt_bb", "p2_leaf_sponge",
                                   "p2_merkle_levels")}
     counts = {}
+    # every proof made on the card, for phase 5: (label, proof, verifier
+    # data, common data)
+    made = []
     for field, counters in path_kernels.items():
         try:
             # the port's own circuit at 2^6, and its retry through
             # CircuitData.prove: the counter goes on from witness generation
             data, pw, circuit, arrays = built(field, SMALL_BITS)
-            check_proof(field, f"{SMALL_BITS}_built",
-                        prover.prove(circuit, device="cuda"), arrays)
-            check_retry(field, SMALL_BITS, "built",
-                        lambda _: data.prove(pw, rng=NonRandomRng(1)))
+            proof = prover.prove(circuit, device="cuda")
+            check_proof(field, f"{SMALL_BITS}_built", proof, arrays)
+            retry = check_retry(field, SMALL_BITS, "built",
+                                lambda _: data.prove(pw, rng=NonRandomRng(1)))
+            made += [(f"{field}_2e{SMALL_BITS}_built", proof,
+                      data.verifier_only, data.common),
+                     (f"{field}_2e{SMALL_BITS}_built_retry", retry,
+                      data.verifier_only, data.common)]
             # the circuit carried across as data, and its retry
             circuit, arrays = load(field, SMALL_BITS)
-            check_proof(field, SMALL_BITS,
-                        prover.prove(circuit, device="cuda"), arrays)
-            check_retry(field, SMALL_BITS, "loaded",
-                        lambda counter: prover.prove(
-                            circuit, device="cuda", rng=NonRandomRng(counter)))
+            proof = prover.prove(circuit, device="cuda")
+            check_proof(field, SMALL_BITS, proof, arrays)
+            retry = check_retry(field, SMALL_BITS, "loaded",
+                                lambda counter: prover.prove(
+                                    circuit, device="cuda",
+                                    rng=NonRandomRng(counter)))
+            made += [(f"{field}_2e{SMALL_BITS}_loaded", proof,
+                      circuit.verifier_data(), circuit.common),
+                     (f"{field}_2e{SMALL_BITS}_loaded_retry", retry,
+                      circuit.verifier_data(), circuit.common)]
             # the main path at the benchmark size: build, witness, warm-up,
             # 3 timed proves of the finished circuit
             data, pw, circuit, arrays = built(field, MAIN_BITS, reps=3)
@@ -790,6 +862,8 @@ def main() -> int:
                 run_counts = ops.launch_counts()
                 phases.append(timings)
             check_proof(field, MAIN_BITS, proof, arrays)
+            made.append((f"{field}_2e{MAIN_BITS}", proof, data.verifier_only,
+                         data.common))
             # one whole CircuitData.prove: witness generation and prove
             whole = {}
             torch.cuda.synchronize()
@@ -798,6 +872,8 @@ def main() -> int:
             torch.cuda.synchronize()
             whole_s = time.perf_counter() - t0
             check_proof(field, f"{MAIN_BITS}_whole", proof, arrays)
+            made.append((f"{field}_2e{MAIN_BITS}_whole", proof,
+                         data.verifier_only, data.common))
             print(f"{field} whole data.prove(pw) 2^{MAIN_BITS}: "
                   f"{whole_s:.4f} s, of it witness generation "
                   f"{whole['witness_generation']:.4f} s")
@@ -832,6 +908,15 @@ def main() -> int:
                                     f"{field} prove")
         except Exception as e:
             failures.append(f"{field} main path: {type(e).__name__}: {e}")
+
+    # -- phase 5: the verifier, on the host ----------------------------------
+    try:
+        verify_s = phase_verify(made, failures)
+        report["verify_s"] = verify_s
+        print("verify_s (host s, median of 3): " + json.dumps(
+            {k: round(v["median"], 4) for k, v in verify_s.items()}))
+    except Exception as e:
+        failures.append(f"verify phase: {type(e).__name__}: {e}")
 
     # the rule-2 order: each kernel's excess in one 2^12 prove, the sum
     # over its recorded calls of (ms - probe bound) at the call's shape,

@@ -2,32 +2,63 @@
 
 import re
 
+from ..field import host
+from .access_gates import BaseSumGate, RandomAccessGate
 from .base import Gate
 from .basic_gates import ArithmeticGate, ConstantGate, NoopGate, \
     PublicInputGate
+from .coset_interpolation import CosetInterpolationGate
+from .extension_gates import ArithmeticExtensionGate, MulExtensionGate
 from .poseidon import PoseidonGate
 from .poseidon2_bb_gate import Poseidon2BabyBearGate
+from .poseidon_mds import PoseidonMdsGate
+from .reducing import ReducingExtensionGate, ReducingGate
 
+# (id pattern, gate of the match and the field spec)
 _PATTERNS = [
-    (re.compile(r"ArithmeticGate \{ num_ops: (\d+) \}"),
-     lambda m: ArithmeticGate(int(m.group(1)))),
-    (re.compile(r"ConstantGate \{ num_consts: (\d+) \}"),
-     lambda m: ConstantGate(int(m.group(1)))),
-    (re.compile(r"PublicInputGate<(\d+)>"),
-     lambda m: PublicInputGate(int(m.group(1)))),
-    (re.compile(r"NoopGate"), lambda m: NoopGate()),
-    (re.compile(r"PoseidonGate<WIDTH=12>"), lambda m: PoseidonGate()),
-    (re.compile(r"Poseidon2BabyBearGate \{ num_ops: (\d+), _phantom: "
-                r"PhantomData<p3_baby_bear::baby_bear::BabyBear> \}"
-                r"<WIDTH=16>"),
-     lambda m: Poseidon2BabyBearGate(int(m.group(1)))),
+    (r"ArithmeticGate \{ num_ops: (\d+) \}",
+     lambda m, s: ArithmeticGate(int(m[1]))),
+    (r"ConstantGate \{ num_consts: (\d+) \}",
+     lambda m, s: ConstantGate(int(m[1]))),
+    (r"PublicInputGate<(\d+)>", lambda m, s: PublicInputGate(int(m[1]))),
+    (r"NoopGate", lambda m, s: NoopGate()),
+    (r"PoseidonGate<WIDTH=12>", lambda m, s: PoseidonGate()),
+    (r"Poseidon2BabyBearGate \{ num_ops: (\d+), _phantom: "
+     r"PhantomData<p3_baby_bear::baby_bear::BabyBear> \}<WIDTH=16>",
+     lambda m, s: Poseidon2BabyBearGate(int(m[1]))),
+    (r"ArithmeticExtensionGate \{ num_ops: (\d+) \}",
+     lambda m, s: ArithmeticExtensionGate(int(m[1]), s.ext_degree)),
+    (r"MulExtensionGate \{ num_ops: (\d+) \}",
+     lambda m, s: MulExtensionGate(int(m[1]), s.ext_degree)),
+    (r"ReducingGate \{ num_coeffs: (\d+) \}",
+     lambda m, s: ReducingGate(int(m[1]), s.ext_degree)),
+    (r"ReducingExtensionGate \{ num_coeffs: (\d+) \}",
+     lambda m, s: ReducingExtensionGate(int(m[1]), s.ext_degree)),
+    (r"RandomAccessGate \{ bits: (\d+), num_copies: (\d+), "
+     r"num_extra_constants: (\d+) \}",
+     lambda m, s: RandomAccessGate(int(m[1]), int(m[2]), int(m[3]))),
+    (r"BaseSumGate \{ num_limbs: (\d+) \} \+ Base: (\d+)",
+     lambda m, s: BaseSumGate(int(m[1]), int(m[2]))),
+    (r"(\d+),(\d+),\[([\d, ]*)\]<D=(\d+)>",
+     lambda m, s: CosetInterpolationGate(
+         int(m[1]), int(m[2]),
+         [int(w) for w in m[3].split(",") if w.strip()], s)),
+    (r"PoseidonMdsGate\(PhantomData<plonky2_field::goldilocks_field::"
+     r"GoldilocksField>\)<WIDTH=12>",
+     lambda m, s: PoseidonMdsGate(s.ext_degree)),
 ]
+_PATTERNS = [(re.compile(p), make) for p, make in _PATTERNS]
 
 
-def gate_from_id(gate_id: str) -> Gate:
-    """The port's gate for a reference id string; raises on any other."""
+def gate_from_id(gate_id: str, spec: host.FieldSpec = host.GOLDILOCKS
+                 ) -> Gate:
+    """The port's gate for a reference id string over the field of
+    ``spec``; raises on any other."""
     for pattern, make in _PATTERNS:
         m = pattern.fullmatch(gate_id)
         if m:
-            return make(m)
+            gate = make(m, spec)
+            if gate.id() != gate_id:
+                raise ValueError(f"gate {gate_id!r} reads as {gate.id()!r}")
+            return gate
     raise ValueError(f"gate {gate_id!r} is not ported")

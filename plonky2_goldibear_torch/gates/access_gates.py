@@ -1,0 +1,135 @@
+"""RandomAccessGate and BaseSumGate, constraint side (reference
+plonky2/src/gates/{random_access.rs, base_sum.rs}; the JAX package's
+``gates/access_gates.py``).  Witness generators and quotient evaluation:
+ROADMAP Queue 1 item 4.
+"""
+
+from __future__ import annotations
+
+from .base import Gate, generators_not_ported
+
+
+class RandomAccessGate(Gate):
+    """claimed_element == list[access_index], through the bits of the
+    index and a log-depth fold of the list; each copy's routed wires are
+    the index, the claimed element and the 2^bits items, then the extra
+    constants, then the non-routed bits of every copy (reference
+    random_access.rs:32-200)."""
+
+    def __init__(self, bits: int, num_copies: int, num_extra_constants: int):
+        self.bits = bits
+        self.num_copies = num_copies
+        self.num_ops = num_copies
+        self.num_extra_constants = num_extra_constants
+
+    def id(self):
+        return (f"RandomAccessGate {{ bits: {self.bits}, num_copies: "
+                f"{self.num_copies}, num_extra_constants: "
+                f"{self.num_extra_constants} }}")
+
+    @property
+    def vec_size(self):
+        return 1 << self.bits
+
+    def wire_access_index(self, copy):
+        return (2 + self.vec_size) * copy
+
+    def wire_claimed_element(self, copy):
+        return (2 + self.vec_size) * copy + 1
+
+    def wire_list_item(self, i, copy):
+        return (2 + self.vec_size) * copy + 2 + i
+
+    def wire_extra_constant(self, i):
+        return (2 + self.vec_size) * self.num_copies + i
+
+    def num_routed(self):
+        return self.wire_extra_constant(self.num_extra_constants)
+
+    def wire_bit(self, i, copy):
+        return self.num_routed() + copy * self.bits + i
+
+    def num_wires(self):
+        return self.wire_bit(self.bits - 1, self.num_copies - 1) + 1
+
+    def num_constants(self):
+        return self.num_extra_constants
+
+    def degree(self):
+        return self.bits + 1
+
+    def num_constraints(self):
+        return self.num_copies * (self.bits + 2) + self.num_extra_constants
+
+    def extra_constant_wires(self):
+        return [(i, self.wire_extra_constant(i))
+                for i in range(self.num_extra_constants)]
+
+    generators = generators_not_ported
+
+    def eval_unfiltered(self, A, vars):
+        lw = vars.local_wires
+        one = A.one()
+        out = []
+        for copy in range(self.num_copies):
+            items = [lw[self.wire_list_item(i, copy)]
+                     for i in range(self.vec_size)]
+            bits = [lw[self.wire_bit(i, copy)] for i in range(self.bits)]
+            out += [A.mul(b, A.sub(b, one)) for b in bits]
+            recon = A.zero()
+            for b in reversed(bits):
+                recon = A.add(A.add(recon, recon), b)
+            out.append(A.sub(recon, lw[self.wire_access_index(copy)]))
+            for b in bits:
+                items = [A.add(items[2 * i],
+                               A.mul(b, A.sub(items[2 * i + 1],
+                                              items[2 * i])))
+                         for i in range(len(items) // 2)]
+            out.append(A.sub(items[0], lw[self.wire_claimed_element(copy)]))
+        out += [A.sub(vars.local_constants[i], lw[self.wire_extra_constant(i)])
+                for i in range(self.num_extra_constants)]
+        return out
+
+
+class BaseSumGate(Gate):
+    """sum = sum_i limb_i B^i with each limb in [0, B); wire 0 is the sum,
+    wires 1.. the limbs (reference base_sum.rs:25-150)."""
+
+    WIRE_SUM = 0
+    START_LIMBS = 1
+
+    def __init__(self, num_limbs: int, base: int):
+        self.num_limbs = num_limbs
+        self.base = base
+
+    def id(self):
+        return (f"BaseSumGate {{ num_limbs: {self.num_limbs} }} + Base: "
+                f"{self.base}")
+
+    def limbs(self):
+        return range(self.START_LIMBS, self.START_LIMBS + self.num_limbs)
+
+    def num_wires(self):
+        return 1 + self.num_limbs
+
+    def num_constants(self):
+        return 0
+
+    def degree(self):
+        return self.base
+
+    def num_constraints(self):
+        return 1 + self.num_limbs
+
+    generators = generators_not_ported
+
+    def eval_unfiltered(self, A, vars):
+        limbs = [vars.local_wires[i] for i in self.limbs()]
+        computed = A.zero()
+        for limb in reversed(limbs):
+            computed = A.add(A.mul_base_const(computed, self.base), limb)
+        out = [A.sub(computed, vars.local_wires[self.WIRE_SUM])]
+        for limb in limbs:
+            out.append(A.mul_many([A.add_base_const(limb, (-i) % A.spec.p)
+                                   for i in range(self.base)]))
+        return out

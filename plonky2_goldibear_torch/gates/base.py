@@ -11,6 +11,15 @@ takes the field module ``F`` (``gl`` or ``bb``), the stacked wires
 (num_wires, m), the gate constants (k, m) and the public-input hash (4 or
 8 scalar tensors) and returns a (num_constraints, m) tensor.
 
+The verifier evaluates the same constraints at one extension point, on
+the host: ``eval_unfiltered(A, vars)`` is written once over an algebra
+``A`` (the JAX package's ``gates/base.py``).  ``HostExtAlgebra`` works on
+D-tuples of python ints (the verifier at zeta), ``HostBaseAlgebra`` on
+python ints (one base-field point, where a test holds the two forms
+against each other).  An extension gate's operand at zeta is a D-vector of
+extension elements, multiplied with ``ext_algebra_mul`` in
+F_D[X]/(X^D - W).
+
 Selector filtering (reference gate.rs:391-430): filter = prod over the
 gate's selector group of (i - s), times (UNUSED - s) when the circuit has
 several selector polynomials.
@@ -18,20 +27,164 @@ several selector polynomials.
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
-from ..field import gl
+from ..field import gl, host
 
 # Placeholder selector value for rows whose gate is in another group
 # (reference gates/selectors.rs:14).
 UNUSED_SELECTOR = (1 << 32) - 1
 
 
+class _FusedOpsMixin:
+    """The fused operations the gates and the vanishing polynomial are
+    written with, composed from the algebra's add / sub / mul (the
+    reference's circuit evaluators emit these as single gadgets; here they
+    give the same field values)."""
+
+    def mul_add(self, a, b, c):
+        return self.add(self.mul(a, b), c)
+
+    def mul_sub(self, a, b, c):
+        return self.sub(self.mul(a, b), c)
+
+    def mul_many(self, terms):
+        out = None
+        for t in terms:
+            out = t if out is None else self.mul(out, t)
+        return out if out is not None else self.one()
+
+    def const_mul_add(self, c: int, x, acc):
+        """c * x + acc with a constant c known on the host."""
+        return self.add(self.mul_base_const(x, c), acc)
+
+    def const_mul(self, c: int, x):
+        return self.mul_base_const(x, c)
+
+    def k_const_mul(self, k: int, x):
+        """k * x with k a coset shift."""
+        return self.mul_base_const(x, k)
+
+    def scalar_mul_add(self, s, b, c):
+        """s * b + c with s a base-field challenge."""
+        return self.add(self.mul_scalar(b, s), c)
+
+    def exp7(self, x):
+        """x^7, the Poseidon S-box, in four multiplications."""
+        x2 = self.mul(x, x)
+        x3 = self.mul(x2, x)
+        x4 = self.mul(x2, x2)
+        return self.mul(x3, x4)
+
+
+class HostExtAlgebra(_FusedOpsMixin):
+    """The extension field on D-tuples of python ints (the verifier)."""
+
+    def __init__(self, spec: host.FieldSpec):
+        self.spec = spec
+
+    def from_int(self, c: int):
+        return host.ext_from_base(self.spec, c)
+
+    def zero(self):
+        return host.ext_zero(self.spec)
+
+    def one(self):
+        return host.ext_one(self.spec)
+
+    def add(self, a, b):
+        return host.ext_add(self.spec, a, b)
+
+    def sub(self, a, b):
+        return host.ext_sub(self.spec, a, b)
+
+    def mul(self, a, b):
+        return host.ext_mul(self.spec, a, b)
+
+    def mul_base_const(self, a, c: int):
+        return host.ext_scalar_mul(self.spec, a, c % self.spec.p)
+
+    def add_base_const(self, a, c: int):
+        return host.ext_add(self.spec, a, self.from_int(c))
+
+    # a "scalar" is a base-field challenge: an int on the host
+    def mul_scalar(self, a, s: int):
+        return host.ext_scalar_mul(self.spec, a, s)
+
+    def lift_scalar(self, s: int):
+        return host.ext_from_base(self.spec, s)
+
+
+class HostBaseAlgebra(_FusedOpsMixin):
+    """The base field on python ints."""
+
+    def __init__(self, spec: host.FieldSpec):
+        self.spec = spec
+        self.p = spec.p
+
+    def from_int(self, c: int):
+        return c % self.p
+
+    def zero(self):
+        return 0
+
+    def one(self):
+        return 1
+
+    def add(self, a, b):
+        return (a + b) % self.p
+
+    def sub(self, a, b):
+        return (a - b) % self.p
+
+    def mul(self, a, b):
+        return a * b % self.p
+
+    def mul_base_const(self, a, c: int):
+        return a * c % self.p
+
+    def add_base_const(self, a, c: int):
+        return (a + c) % self.p
+
+    def mul_scalar(self, a, s: int):
+        return a * s % self.p
+
+    def lift_scalar(self, s: int):
+        return s % self.p
+
+
+class EvaluationVars:
+    """The local constants and wires of a row and the public-input hash,
+    as algebra values (reference plonk/vars.rs)."""
+
+    def __init__(self, local_constants: Sequence, local_wires: Sequence,
+                 public_inputs_hash: Sequence):
+        self.local_constants = list(local_constants)
+        self.local_wires = list(local_wires)
+        self.public_inputs_hash = list(public_inputs_hash)
+
+
+def _not_ported(gate, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"the {what} of {gate.id()} is not ported yet "
+        "(ROADMAP Queue 1 item 4)")
+
+
+def generators_not_ported(gate, row, local_constants, spec):
+    """``generators`` of a gate the port reads and verifies but does not
+    yet place in a circuit."""
+    raise _not_ported(gate, "witness generators")
+
+
 class Gate:
     """Base gate.  Subclasses define id() (the reference's Rust Debug
     string), num_wires(), num_constants(), degree(), num_constraints(),
-    eval_unfiltered_device() and, where they fill wires, generators();
-    ``num_ops`` is the slot capacity of a slot-packed gate."""
+    eval_unfiltered() (the host form, over an algebra),
+    eval_unfiltered_device() (the stacked form the prover uses) and, where
+    they fill wires, generators(); ``num_ops`` is the slot capacity of a
+    slot-packed gate."""
 
     num_ops = 1
 
@@ -66,10 +219,14 @@ class Gate:
         gate.rs:78-85)."""
         return False
 
+    def eval_unfiltered(self, A, vars: EvaluationVars) -> List:
+        """The constraints at one point, as algebra values."""
+        raise NotImplementedError
+
     def eval_unfiltered_device(self, F, wires: torch.Tensor,
                                constants: torch.Tensor,
                                pi_hash) -> torch.Tensor:
-        raise NotImplementedError
+        raise _not_ported(self, "quotient evaluation")
 
     def __eq__(self, other):
         return isinstance(other, Gate) and self.id() == other.id()
@@ -92,3 +249,59 @@ def compute_filter(row: int, group_range, s: torch.Tensor,
         return F.ones((), s.device)
     terms = F.sub(F.from_ints(consts, s.device)[:, None], s[None, :])
     return F.batch_prod(terms, axis=0)
+
+
+# -- the host forms --------------------------------------------------------
+
+
+def ext_algebra_mul(A, spec, a, b):
+    """a * b in F_D[X]/(X^D - W), a and b D-vectors of algebra values (the
+    reference's ExtensionAlgebra, field/src/extension_algebra.rs:13-128)."""
+    d, w = spec.ext_degree, spec.ext_w
+    acc = [None] * (2 * d - 1)
+    for i in range(d):
+        for j in range(d):
+            t = A.mul(a[i], b[j])
+            k = i + j
+            acc[k] = t if acc[k] is None else A.add(acc[k], t)
+    out = list(acc[:d])
+    for k in range(d, 2 * d - 1):
+        out[k - d] = A.add(out[k - d], A.mul_base_const(acc[k], w))
+    return out
+
+
+def ext_algebra_scalar_mul(A, a, s):
+    return [A.mul(x, s) for x in a]
+
+
+def ext_algebra_sub(A, a, b):
+    return [A.sub(x, y) for x, y in zip(a, b)]
+
+
+def ext_algebra_add(A, a, b):
+    return [A.add(x, y) for x, y in zip(a, b)]
+
+
+def compute_filter_a(A, row: int, group_range, s, many_selector: bool):
+    """``compute_filter`` at one point, over the algebra ``A``."""
+    terms = [A.sub(A.from_int(i), s)
+             for i in range(group_range[0], group_range[1]) if i != row]
+    if many_selector:
+        terms.append(A.sub(A.from_int(UNUSED_SELECTOR % A.spec.p), s))
+    return A.mul_many(terms)
+
+
+def eval_filtered(A, gate: Gate, vars: EvaluationVars, row: int,
+                  selector_index: int, group_range, num_selectors: int,
+                  num_lookup_selectors: int, constraints_acc: List) -> None:
+    """acc_j = filter * c_j + acc_j over the gate's unfiltered constraints
+    c_j, whose constants start after the selector columns (reference
+    gate.rs:162-243)."""
+    filt = compute_filter_a(A, row, group_range,
+                            vars.local_constants[selector_index],
+                            num_selectors > 1)
+    inner = EvaluationVars(
+        vars.local_constants[num_selectors + num_lookup_selectors:],
+        vars.local_wires, vars.public_inputs_hash)
+    for j, c in enumerate(gate.eval_unfiltered(A, inner)):
+        constraints_acc[j] = A.mul_add(filt, c, constraints_acc[j])

@@ -55,6 +55,15 @@ class ArithmeticGate(Gate):
                          F.mul(addend, constants[1]))
         return F.sub(out, computed)
 
+    def eval_unfiltered(self, A, vars):
+        c0, c1 = vars.local_constants[0], vars.local_constants[1]
+        out = []
+        for i in range(self.num_ops):
+            m0, m1, ad, o = (vars.local_wires[w] for w in self.wires(i))
+            computed = A.add(A.mul(A.mul(m0, m1), c0), A.mul(ad, c1))
+            out.append(A.sub(o, computed))
+        return out
+
 
 class _ArithmeticOpGenerator(gen.SimpleGenerator):
     """output = c0 * m0 * m1 + c1 * addend of one op."""
@@ -108,6 +117,10 @@ class ConstantGate(Gate):
         k = self.num_consts
         return F.sub(constants[:k], wires[:k])
 
+    def eval_unfiltered(self, A, vars):
+        return [A.sub(vars.local_constants[i], vars.local_wires[i])
+                for i in range(self.num_consts)]
+
 
 class PublicInputGate(Gate):
     """Pins wires 0..N to the public-input hash
@@ -134,6 +147,10 @@ class PublicInputGate(Gate):
     def eval_unfiltered_device(self, F, wires, constants, pi_hash):
         return F.sub(wires[:self.n], torch.stack(list(pi_hash))[:, None])
 
+    def eval_unfiltered(self, A, vars):
+        return [A.sub(vars.local_wires[i], vars.public_inputs_hash[i])
+                for i in range(self.n)]
+
 
 class NoopGate(Gate):
     """Padding (reference gates/noop.rs)."""
@@ -155,3 +172,6 @@ class NoopGate(Gate):
 
     def eval_unfiltered_device(self, F, wires, constants, pi_hash):
         return F.zeros((0, wires.shape[-1]), wires.device)
+
+    def eval_unfiltered(self, A, vars):
+        return []

@@ -115,6 +115,55 @@ class PoseidonGate(Gate):
     def generators(self, row, local_constants, spec):
         return [PoseidonGenerator(row, spec)]
 
+    def eval_unfiltered(self, A, vars):
+        """The constraints at one point over the algebra ``A``, in the
+        order of ``eval_unfiltered_device`` (the JAX package's
+        ``gates/poseidon.py:107``, fast partial-round schedule)."""
+        lw = vars.local_wires
+        swap = lw[self.WIRE_SWAP]
+        constraints = [A.mul_sub(swap, swap, swap)]
+        for i in range(4):
+            lhs, rhs = lw[self.wire_input(i)], lw[self.wire_input(i + 4)]
+            constraints.append(A.mul_sub(swap, A.sub(rhs, lhs),
+                                         lw[self.wire_delta(i)]))
+        state = [lw[self.wire_input(i)] for i in range(W)]
+        for i in range(4):
+            delta = lw[self.wire_delta(i)]
+            state[i] = A.add(state[i], delta)
+            state[i + 4] = A.sub(state[i + 4], delta)
+        round_ctr = 0
+        for r in range(HALF):
+            state = pg.constant_layer_a(A, state, round_ctr)
+            if r != 0:
+                for i in range(W):
+                    sbox_in = lw[self.wire_full_sbox_0(r, i)]
+                    constraints.append(A.sub(state[i], sbox_in))
+                    state[i] = sbox_in
+            state = pg.mds_layer_a(A, pg.sbox_layer_a(A, state))
+            round_ctr += 1
+        state = pg.mds_partial_layer_init_a(
+            A, pg.partial_first_constant_layer_a(A, state))
+        for r in range(NP):
+            sbox_in = lw[self.wire_partial_sbox(r)]
+            constraints.append(A.sub(state[0], sbox_in))
+            state[0] = pg.sbox_monomial_a(A, sbox_in)
+            if r < NP - 1:
+                state[0] = A.add_base_const(
+                    state[0], C.FAST_PARTIAL_ROUND_CONSTANTS[r])
+            state = pg.mds_partial_layer_fast_a(A, state, r)
+        round_ctr += NP
+        for r in range(HALF):
+            state = pg.constant_layer_a(A, state, round_ctr)
+            for i in range(W):
+                sbox_in = lw[self.wire_full_sbox_1(r, i)]
+                constraints.append(A.sub(state[i], sbox_in))
+                state[i] = sbox_in
+            state = pg.mds_layer_a(A, pg.sbox_layer_a(A, state))
+            round_ctr += 1
+        constraints += [A.sub(state[i], lw[self.wire_output(i)])
+                        for i in range(W)]
+        return constraints
+
     def eval_unfiltered_device(self, F, wires: torch.Tensor, constants,
                                pi_hash) -> torch.Tensor:
         """Constraints (123, m) over stacked Goldilocks wires

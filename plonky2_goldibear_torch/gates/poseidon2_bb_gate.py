@@ -107,6 +107,55 @@ class Poseidon2BabyBearGate(Gate):
             slot_idx += 1
         return completed
 
+    def eval_unfiltered(self, A, vars):
+        """The constraints at one point over the algebra ``A``, in the
+        order of ``eval_unfiltered_device`` (the JAX package's
+        ``gates/poseidon2_bb_gate.py:92``)."""
+        lw = vars.local_wires
+        one = A.one()
+        constraints = []
+        for op in range(self.num_ops):
+            swap = lw[self.wire_swap(op)]
+            constraints.append(A.mul(swap, A.sub(swap, one)))
+            state = [lw[self.wire_input(op, i)] for i in range(W)]
+            for i in range(CAP):
+                delta = lw[self.wire_delta(op, i)]
+                lhs, rhs = state[i], state[i + CAP]
+                constraints.append(A.sub(A.mul(swap, A.sub(rhs, lhs)),
+                                         delta))
+                state[i], state[i + CAP] = A.add(lhs, delta), \
+                    A.sub(rhs, delta)
+            state = p2.external_layer_a(A, state)
+            for r in range(HALF):
+                state = [A.add_base_const(x, c)
+                         for x, c in zip(state, C.EXTERNAL_CONSTANTS[r])]
+                if r > 0:
+                    for i in range(W):
+                        sbox_in = lw[self.wire_full_sbox_0(op, r, i)]
+                        constraints.append(A.sub(state[i], sbox_in))
+                        state[i] = sbox_in
+                state = p2.external_layer_a(
+                    A, [p2.sbox_a(A, x) for x in state])
+            for r in range(NP):
+                state[0] = A.add_base_const(state[0],
+                                            C.INTERNAL_CONSTANTS[r])
+                sbox_in = lw[self.wire_partial_sbox(op, r)]
+                constraints.append(A.sub(state[0], sbox_in))
+                state[0] = p2.sbox_a(A, sbox_in)
+                state = p2.internal_layer_a(A, state)
+            for r in range(HALF, C.N_FULL_ROUNDS_TOTAL):
+                state = [A.add_base_const(x, c)
+                         for x, c in zip(state, C.EXTERNAL_CONSTANTS[r])]
+                for i in range(W):
+                    sbox_in = lw[self.wire_full_sbox_1(op, r - HALF, i)]
+                    constraints.append(A.sub(state[i], sbox_in))
+                    state[i] = sbox_in
+                state = p2.external_layer_a(
+                    A, [p2.sbox_a(A, x) for x in state])
+            constraints += [A.sub(state[i], lw[self.wire_output(op, i)])
+                            for i in range(W)]
+        return constraints
+
     def eval_unfiltered_device(self, F, wires: torch.Tensor, constants,
                                pi_hash) -> torch.Tensor:
         """Constraints (150 num_ops, m) over stacked BabyBear wires

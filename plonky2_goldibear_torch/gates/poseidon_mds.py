@@ -1,0 +1,60 @@
+"""PoseidonMdsGate, constraint side: one width-12 Poseidon MDS layer over
+extension elements, coefficient by coefficient (reference
+plonky2/src/gates/poseidon_goldilocks_mds.rs; the JAX package's
+``gates/poseidon_mds.py``).  Witness generator and quotient evaluation:
+ROADMAP Queue 1 item 4.
+"""
+
+from __future__ import annotations
+
+from ..hash import _poseidon_gl_constants as C
+from .base import Gate, generators_not_ported
+
+W = C.SPONGE_WIDTH
+
+
+class PoseidonMdsGate(Gate):
+    """Wires: 12 inputs then 12 outputs, D coefficients each."""
+
+    def __init__(self, D: int = 2):
+        self.D = D
+
+    def id(self):
+        return ("PoseidonMdsGate(PhantomData<plonky2_field::goldilocks_"
+                f"field::GoldilocksField>)<WIDTH={W}>")
+
+    def wires_input(self, i):
+        return range(i * self.D, (i + 1) * self.D)
+
+    def wires_output(self, i):
+        return range((W + i) * self.D, (W + i + 1) * self.D)
+
+    def num_wires(self):
+        return 2 * self.D * W
+
+    def num_constants(self):
+        return 0
+
+    def degree(self):
+        return 1
+
+    def num_constraints(self):
+        return W * self.D
+
+    generators = generators_not_ported
+
+    def eval_unfiltered(self, A, vars):
+        lw = vars.local_wires
+        inputs = [[lw[w] for w in self.wires_input(i)] for i in range(W)]
+        out = []
+        for r in range(W):
+            for d, w in enumerate(self.wires_output(r)):
+                acc = None
+                for i in range(W):
+                    t = A.mul_base_const(inputs[(i + r) % W][d],
+                                         C.MDS_MATRIX_CIRC[i])
+                    acc = t if acc is None else A.add(acc, t)
+                acc = A.add(acc, A.mul_base_const(inputs[r][d],
+                                                  C.MDS_MATRIX_DIAG[r]))
+                out.append(A.sub(lw[w], acc))
+        return out

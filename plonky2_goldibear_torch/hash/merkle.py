@@ -7,7 +7,8 @@ the sibling chain up to (excluding) the cap.  One dense digest tensor per
 level in natural node order; on a CUDA tensor the leaf digests come from
 the leaf-sponge kernel and the levels from the Merkle-level kernel of the
 hasher (``hash/poseidon_gl.py`` or ``hash/poseidon2_bb.py``; digests of 4
-or 8 elements).
+or 8 elements).  ``verify_merkle_proof_to_cap`` is the verifier's check,
+on the host.
 """
 
 from __future__ import annotations
@@ -64,3 +65,20 @@ class MerkleTree:
                               device=self.leaves.device)
         rows = self.F.to_ints(self.leaves[idx])
         return [[int(x) for x in row] for row in rows]
+
+
+def verify_merkle_proof_to_cap(leaf_data: Sequence[int], leaf_index: int,
+                               cap: Sequence[Sequence[int]],
+                               siblings: Sequence[Sequence[int]],
+                               hasher=poseidon_gl) -> bool:
+    """Whether the sibling chain takes the leaf to its cap node, on the
+    host (reference hash/merkle_proofs.rs:54-80)."""
+    current = hasher.hash_or_noop_host(list(leaf_data))
+    index = leaf_index
+    for sib in siblings:
+        if index & 1:
+            current = hasher.two_to_one_host(list(sib), current)
+        else:
+            current = hasher.two_to_one_host(current, list(sib))
+        index >>= 1
+    return index < len(cap) and list(current) == list(cap[index])

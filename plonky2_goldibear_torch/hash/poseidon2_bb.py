@@ -12,7 +12,9 @@ INTERNAL_SCALE, then head = sum(lanes 1..15) - lane 0 and lane i = sum(all)
 the 16 lanes of (left || right).
 
 The host functions (canonical python ints) serve the Fiat-Shamir
-challenger and the public-input hash.  The device functions take BabyBear
+challenger, the public-input hash and the verifier's Merkle checks; the
+``*_a`` functions run the permutation over an algebra for the gate's host
+constraints.  The device functions take BabyBear
 Montgomery tensors in the JAX package's layout (states (..., 16), inputs
 (..., L)) and reach the kernels of ``ops/poseidon2_bb.py`` for CUDA
 tensors.  A hasher module: WIDTH, RATE, NUM_HASH_OUT, F, host and device
@@ -104,6 +106,90 @@ def hash_n_to_m_no_pad_host(inputs: Sequence[int],
 
 def hash_no_pad_host(inputs: Sequence[int]) -> List[int]:
     return hash_n_to_m_no_pad_host(inputs, NUM_HASH_OUT)
+
+
+def hash_or_noop_host(inputs: Sequence[int]) -> List[int]:
+    """Up to 8 elements: zero-padded as they are; more: the sponge hash."""
+    if len(inputs) <= NUM_HASH_OUT:
+        return list(inputs) + [0] * (NUM_HASH_OUT - len(inputs))
+    return hash_no_pad_host(inputs)
+
+
+def two_to_one_host(x: Sequence[int], y: Sequence[int]) -> List[int]:
+    """Merkle compression: the permutation of the 16 lanes of (x || y)."""
+    state = list(x) + list(y)
+    assert len(state) == WIDTH
+    return permute_host(state)[:NUM_HASH_OUT]
+
+
+# The permutation over an algebra ``A`` (``gates/base.py``): the
+# Poseidon2BabyBearGate's host constraints (reference
+# gates/poseidon2_babybear.rs:787-995; the JAX package's
+# ``hash/poseidon2_bb.py:46-94``).
+
+
+def apply_mat4_a(A, x: List) -> List:
+    t01 = A.add(x[0], x[1])
+    t23 = A.add(x[2], x[3])
+    t0123 = A.add(t01, t23)
+    t01123 = A.add(t0123, x[1])
+    t01233 = A.add(t0123, x[3])
+    x3 = A.add(t01233, A.add(x[0], x[0]))
+    x1 = A.add(t01123, A.add(x[2], x[2]))
+    x0 = A.add(t01123, t01)
+    x2 = A.add(t01233, t23)
+    return [x0, x1, x2, x3]
+
+
+def external_layer_a(A, state: List) -> List:
+    out = []
+    for i in range(0, WIDTH, 4):
+        out.extend(apply_mat4_a(A, state[i:i + 4]))
+    sums = []
+    for k in range(4):
+        acc = out[k]
+        for j in range(4, WIDTH, 4):
+            acc = A.add(acc, out[j + k])
+        sums.append(acc)
+    return [A.add(out[i], sums[i % 4]) for i in range(WIDTH)]
+
+
+def internal_layer_a(A, state: List) -> List:
+    state = [A.mul_base_const(x, C.INTERNAL_SCALE) for x in state]
+    part_sum = state[1]
+    for x in state[2:]:
+        part_sum = A.add(part_sum, x)
+    full_sum = A.add(part_sum, state[0])
+    out = [A.sub(part_sum, state[0])]
+    for i, shift in enumerate(C.INTERNAL_DIAG_SHIFTS):
+        out.append(A.add(full_sum,
+                         A.mul_base_const(state[i + 1], 1 << shift)))
+    return out
+
+
+def sbox_a(A, x):
+    x2 = A.mul(x, x)
+    x3 = A.mul(x2, x)
+    return A.mul(x3, A.mul(x2, x2))
+
+
+def permute_a(A, state: List) -> List:
+    """The whole permutation over any algebra; equals ``permute_host``."""
+    assert len(state) == WIDTH
+    state = external_layer_a(A, state)
+    for r in range(C.HALF_N_FULL_ROUNDS):
+        state = external_layer_a(A, [
+            sbox_a(A, A.add_base_const(x, c))
+            for x, c in zip(state, C.EXTERNAL_CONSTANTS[r])])
+    for r in range(C.N_PARTIAL_ROUNDS):
+        state[0] = sbox_a(A, A.add_base_const(state[0],
+                                              C.INTERNAL_CONSTANTS[r]))
+        state = internal_layer_a(A, state)
+    for r in range(C.HALF_N_FULL_ROUNDS, C.N_FULL_ROUNDS_TOTAL):
+        state = external_layer_a(A, [
+            sbox_a(A, A.add_base_const(x, c))
+            for x, c in zip(state, C.EXTERNAL_CONSTANTS[r])])
+    return state
 
 
 # --------------------------------------------------------------------------

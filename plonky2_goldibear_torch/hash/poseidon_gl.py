@@ -6,14 +6,17 @@ ALL_ROUND_CONSTANTS[i + 12 * round], MDS
 ``out[r] = sum_i CIRC[i] s[(i + r) % 12] + DIAG[r] s[r]``
 (reference plonky2/src/hash/poseidon_goldilocks.rs:95-108,301-302).
 
-The host functions (python ints) serve the Fiat-Shamir challenger and the
-public-input hash.  The device functions take tensors with the JAX
+The host functions (python ints) serve the Fiat-Shamir challenger, the
+public-input hash and the verifier's Merkle checks; the ``*_a`` functions
+run the permutation over an algebra for the PoseidonGate's host
+constraints.  The device functions take tensors with the JAX
 package's layout (states (..., 12), inputs (..., L)) and reach the kernels
 of ``ops/poseidon_gl.py`` for CUDA tensors.
 """
 
 from __future__ import annotations
 
+from operator import mul
 from typing import List, Sequence
 
 import torch
@@ -29,6 +32,11 @@ WIDTH = C.SPONGE_WIDTH
 RATE = C.SPONGE_RATE
 NUM_HASH_OUT = GOLDILOCKS.num_hash_out_elts  # 4
 _MDS = K._MDS
+# its rows as python ints, and the columns of the fast schedule's initial
+# matrix, for the host permutation
+_MDS_ROWS = [[int(v) for v in row] for row in _MDS]
+_INIT_COLS = [[C.FAST_PARTIAL_ROUND_INITIAL_MATRIX[r - 1][c - 1]
+               for r in range(1, WIDTH)] for c in range(1, WIDTH)]
 merkle_levels = K.merkle_levels
 
 
@@ -45,28 +53,27 @@ def sbox_host(x: int) -> int:
 
 
 def mds_layer_host(state: List[int]) -> List[int]:
-    return [sum(int(_MDS[r, j]) * state[j] for j in range(WIDTH)) % P
-            for r in range(WIDTH)]
+    return [sum(map(mul, row, state)) % P for row in _MDS_ROWS]
 
 
 def permute_host(state: Sequence[int]) -> List[int]:
-    """The width-12 Poseidon permutation on 12 canonical ints."""
+    """The width-12 Poseidon permutation on 12 canonical ints, through the
+    reference's fast partial rounds (the same permutation in a fifth of
+    the naive schedule's multiplications; the verifier's Merkle checks
+    run thousands of them)."""
     assert len(state) == WIDTH
     s = [x % P for x in state]
-    round_ctr = 0
-    for phase in range(3):
-        n = C.HALF_N_FULL_ROUNDS if phase != 1 else C.N_PARTIAL_ROUNDS
-        full = phase != 1
-        for _ in range(n):
-            rc = C.ALL_ROUND_CONSTANTS[WIDTH * round_ctr:
-                                       WIDTH * (round_ctr + 1)]
-            s = [(x + c) % P for x, c in zip(s, rc)]
-            if full:
-                s = [sbox_host(x) for x in s]
-            else:
-                s[0] = sbox_host(s[0])
-            s = mds_layer_host(s)
-            round_ctr += 1
+    for r in range(C.HALF_N_FULL_ROUNDS):
+        s = mds_layer_host(sbox_layer_host(constant_layer_host(s, r)))
+    s = mds_partial_layer_init_host(partial_first_constant_layer_host(s))
+    for r in range(C.N_PARTIAL_ROUNDS):
+        s[0] = sbox_host(s[0])
+        if r < C.N_PARTIAL_ROUNDS - 1:
+            s[0] = (s[0] + C.FAST_PARTIAL_ROUND_CONSTANTS[r]) % P
+        s = mds_partial_layer_fast_host(s, r)
+    for r in range(C.HALF_N_FULL_ROUNDS):
+        s = mds_layer_host(sbox_layer_host(constant_layer_host(
+            s, C.HALF_N_FULL_ROUNDS + C.N_PARTIAL_ROUNDS + r)))
     return s
 
 
@@ -113,18 +120,110 @@ def partial_first_constant_layer_host(state: List[int]) -> List[int]:
 
 
 def mds_partial_layer_init_host(state: List[int]) -> List[int]:
-    m = C.FAST_PARTIAL_ROUND_INITIAL_MATRIX
-    return [state[0]] + [
-        sum(m[r - 1][c - 1] * state[r] for r in range(1, WIDTH)) % P
-        for c in range(1, WIDTH)]
+    tail = state[1:]
+    return [state[0]] + [sum(map(mul, col, tail)) % P for col in _INIT_COLS]
 
 
 def mds_partial_layer_fast_host(state: List[int], r: int) -> List[int]:
     mds0to0 = C.MDS_MATRIX_CIRC[0] + C.MDS_MATRIX_DIAG[0]
-    d = mds0to0 * state[0] + sum(
-        w * x for w, x in zip(C.FAST_PARTIAL_ROUND_W_HATS[r], state[1:]))
-    return [d % P] + [(v * state[0] + x) % P
-                      for v, x in zip(C.FAST_PARTIAL_ROUND_VS[r], state[1:])]
+    s0, tail = state[0], state[1:]
+    d = mds0to0 * s0 + sum(map(mul, C.FAST_PARTIAL_ROUND_W_HATS[r], tail))
+    return [d % P] + [(v * s0 + x) % P
+                      for v, x in zip(C.FAST_PARTIAL_ROUND_VS[r], tail)]
+
+
+def hash_or_noop_host(inputs: Sequence[int]) -> List[int]:
+    """Up to 4 elements: zero-padded as they are; more: the sponge hash
+    (reference plonk/config.rs:70-84)."""
+    if len(inputs) <= NUM_HASH_OUT:
+        return list(inputs) + [0] * (NUM_HASH_OUT - len(inputs))
+    return hash_no_pad_host(inputs)
+
+
+def two_to_one_host(x: Sequence[int], y: Sequence[int]) -> List[int]:
+    """Merkle compression (reference hash/hashing.rs:76-97)."""
+    state = list(x) + list(y) + [0] * (WIDTH - 2 * NUM_HASH_OUT)
+    return permute_host(state)[:NUM_HASH_OUT]
+
+
+# The same fast schedule over an algebra ``A`` (``gates/base.py``): the
+# PoseidonGate's host constraints at zeta (the JAX package's
+# ``hash/poseidon_gl.py:134-204``).
+
+
+def constant_layer_a(A, state, round_ctr: int):
+    return [A.add_base_const(s, C.ALL_ROUND_CONSTANTS[i + WIDTH * round_ctr])
+            for i, s in enumerate(state)]
+
+
+def sbox_monomial_a(A, x):
+    return A.exp7(x)
+
+
+def sbox_layer_a(A, state):
+    return [sbox_monomial_a(A, s) for s in state]
+
+
+def mds_row_shf_a(A, r: int, v):
+    res = A.zero()
+    for i in range(WIDTH):
+        res = A.const_mul_add(C.MDS_MATRIX_CIRC[i], v[(i + r) % WIDTH], res)
+    return A.const_mul_add(C.MDS_MATRIX_DIAG[r], v[r], res)
+
+
+def mds_layer_a(A, state):
+    return [mds_row_shf_a(A, r, state) for r in range(WIDTH)]
+
+
+def partial_first_constant_layer_a(A, state):
+    return [A.add_base_const(s, C.FAST_PARTIAL_FIRST_ROUND_CONSTANT[i])
+            for i, s in enumerate(state)]
+
+
+def mds_partial_layer_init_a(A, state):
+    result = [A.zero()] * WIDTH
+    result[0] = state[0]
+    for r in range(1, WIDTH):
+        for c in range(1, WIDTH):
+            result[c] = A.const_mul_add(
+                C.FAST_PARTIAL_ROUND_INITIAL_MATRIX[r - 1][c - 1],
+                state[r], result[c])
+    return result
+
+
+def mds_partial_layer_fast_a(A, state, r: int):
+    mds0to0 = C.MDS_MATRIX_CIRC[0] + C.MDS_MATRIX_DIAG[0]
+    d = A.const_mul(mds0to0, state[0])
+    for i in range(1, WIDTH):
+        d = A.const_mul_add(C.FAST_PARTIAL_ROUND_W_HATS[r][i - 1],
+                            state[i], d)
+    return [d] + [A.const_mul_add(C.FAST_PARTIAL_ROUND_VS[r][i - 1],
+                                  state[0], state[i])
+                  for i in range(1, WIDTH)]
+
+
+def permute_fast_a(A, state):
+    """The whole permutation through the fast partial rounds, over any
+    algebra; equals ``permute_host``."""
+    round_ctr = 0
+    for _ in range(C.HALF_N_FULL_ROUNDS):
+        state = mds_layer_a(A, sbox_layer_a(
+            A, constant_layer_a(A, state, round_ctr)))
+        round_ctr += 1
+    state = mds_partial_layer_init_a(
+        A, partial_first_constant_layer_a(A, state))
+    for r in range(C.N_PARTIAL_ROUNDS):
+        state[0] = sbox_monomial_a(A, state[0])
+        if r < C.N_PARTIAL_ROUNDS - 1:
+            state[0] = A.add_base_const(state[0],
+                                        C.FAST_PARTIAL_ROUND_CONSTANTS[r])
+        state = mds_partial_layer_fast_a(A, state, r)
+    round_ctr += C.N_PARTIAL_ROUNDS
+    for _ in range(C.HALF_N_FULL_ROUNDS):
+        state = mds_layer_a(A, sbox_layer_a(
+            A, constant_layer_a(A, state, round_ctr)))
+        round_ctr += 1
+    return state
 
 
 # --------------------------------------------------------------------------

@@ -18,6 +18,11 @@ the circuit and its witness on one device.  Two routes make one:
 The field name ("goldilocks", the default, or "babybear") picks the field
 module, its extension and the hasher once: Goldilocks with Poseidon-GL, or
 BabyBear (Montgomery form) with Poseidon2-BB.
+
+``CircuitData.verify`` checks a proof with the verifier of
+``plonk/verifier.py`` (``Circuit.verifier_data`` gives a loaded circuit's
+verifier data); ``plonk/serialization.py`` reads common circuit data,
+verifier data and proofs in the reference's byte format.
 """
 
 from __future__ import annotations
@@ -51,6 +56,10 @@ ORACLE_WIRES = 1
 ORACLE_ZS_PARTIAL_PRODUCTS = 2
 ORACLE_QUOTIENT = 3
 
+# whether each oracle's leaves carry salts when the proof hides (reference
+# plonk_common.rs:24-40)
+ORACLE_BLINDING = [False, True, True, True]
+
 # field name -> (spec, field module, hasher of the Merkle trees and the
 # transcript)
 FIELDS = {
@@ -69,6 +78,20 @@ def fixture_path(degree_bits: int, field: str = "goldilocks",
     suffix = "_retry" if retry else ""
     return os.path.join(DATA_DIR,
                         f"arith_chain_{tag}2e{degree_bits}{suffix}.npz")
+
+
+def hasher_of(spec: host.FieldSpec):
+    """The hasher of the Merkle trees and the transcript of a field."""
+    for fspec, _, hasher in FIELDS.values():
+        if fspec == spec:
+            return hasher
+    raise ValueError(f"no hasher for the field of p = {spec.p}")
+
+
+@dataclass
+class FriOracleInfo:
+    num_polys: int
+    blinding: bool
 
 
 @dataclass
@@ -90,6 +113,7 @@ class FriBatchInfo:
 
 @dataclass
 class FriInstanceInfo:
+    oracles: List[FriOracleInfo]
     batches: List[FriBatchInfo]
 
 
@@ -106,6 +130,15 @@ class CommonCircuitData:
     k_is: List[int]
     num_partial_products: int
     spec: host.FieldSpec = host.GOLDILOCKS
+    num_lookup_polys: int = 0
+    num_lookup_selectors: int = 0
+    luts: List = field(default_factory=list)
+
+    def __post_init__(self):
+        if self.num_lookup_polys or self.num_lookup_selectors or self.luts:
+            raise NotImplementedError(
+                "lookup circuits are not ported yet (ROADMAP Queue 1 item "
+                "5)")
 
     @property
     def degree_bits(self) -> int:
@@ -114,6 +147,10 @@ class CommonCircuitData:
     @property
     def degree(self) -> int:
         return 1 << self.degree_bits
+
+    @property
+    def lde_size(self) -> int:
+        return self.fri_params.lde_size
 
     @property
     def quotient_degree(self) -> int:
@@ -136,11 +173,28 @@ class CommonCircuitData:
     def num_zs_partial_products_polys(self) -> int:
         return (self.num_partial_products + 1) * self.config.num_challenges
 
+    def num_all_lookup_polys(self) -> int:
+        return self.config.num_challenges * self.num_lookup_polys
+
     def num_preprocessed_polys(self) -> int:
         return self.sigmas_range()[1]
 
     def num_quotient_polys(self) -> int:
         return self.config.num_challenges * self.quotient_degree_factor
+
+    def fri_oracles(self) -> List[FriOracleInfo]:
+        sizes = [self.num_preprocessed_polys(), self.config.num_wires,
+                 self.num_zs_partial_products_polys()
+                 + self.num_all_lookup_polys(), self.num_quotient_polys()]
+        return [FriOracleInfo(n, b) for n, b in zip(sizes, ORACLE_BLINDING)]
+
+    def fri_leaf_lens(self) -> List[int]:
+        """Each oracle's leaf width in a FRI query round: a blinded
+        oracle's leaves end in 4 salt elements when the proof hides
+        (reference fri/oracle.rs:25)."""
+        salt = 4 if self.fri_params.hiding else 0
+        return [o.num_polys + (salt if o.blinding else 0)
+                for o in self.fri_oracles()]
 
     def get_fri_instance(self, zeta: Tuple[int, ...]) -> FriInstanceInfo:
         """Two opening batches: everything at zeta, the Zs at g * zeta
@@ -160,7 +214,7 @@ class CommonCircuitData:
         zeta_next = host.ext_mul(self.spec, g, zeta)
         next_polys = FriPolynomialInfo.from_range(
             ORACLE_ZS_PARTIAL_PRODUCTS, 0, self.config.num_challenges)
-        return FriInstanceInfo(batches=[
+        return FriInstanceInfo(oracles=self.fri_oracles(), batches=[
             FriBatchInfo(point=tuple(zeta), polynomials=all_polys),
             FriBatchInfo(point=tuple(zeta_next), polynomials=next_polys)])
 
@@ -195,6 +249,11 @@ class Circuit:
     def constants_sigmas_cap(self) -> List[List[int]]:
         return self.constants_sigmas_commitment.cap_host()
 
+    def verifier_data(self) -> "VerifierOnlyCircuitData":
+        return VerifierOnlyCircuitData(
+            constants_sigmas_cap=self.constants_sigmas_cap(),
+            circuit_digest=list(self.circuit_digest))
+
 
 def _common_from_meta(meta: Dict, spec: host.FieldSpec
                       ) -> CommonCircuitData:
@@ -226,7 +285,7 @@ def _common_from_meta(meta: Dict, spec: host.FieldSpec
                            reduction_arity_bits=arities)
     return CommonCircuitData(
         config=config, fri_params=fri_params,
-        gates=[gate_from_id(g) for g in meta["gates"]],
+        gates=[gate_from_id(g, spec) for g in meta["gates"]],
         selectors_info=SelectorsInfo(
             selector_indices=list(meta["selector_indices"]),
             groups=[tuple(g) for g in meta["selector_groups"]]),
@@ -396,3 +455,10 @@ class CircuitData:
         with prover.phase(timings, "witness_generation", self.device):
             circuit = self.circuit(pw, rng)
         return prover.prove(circuit, self.device, timings, rng)
+
+    def verify(self, proof_with_pis) -> None:
+        """Raise ``VerificationError`` unless the proof is valid for this
+        circuit (``plonk/verifier.py``, on the host; reference
+        circuit_data.rs:208)."""
+        from . import verifier
+        verifier.verify(proof_with_pis, self.verifier_only, self.common)

@@ -10,19 +10,31 @@ circuit_data.rs:102-187): FRI arity 2^4 for Goldilocks, 2^3 for BabyBear.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 
 @dataclass(frozen=True)
 class FriReductionStrategy:
-    """The reference's ``ConstantArityBits(arity_bits, final_poly_bits)``
-    (fri/reduction_strategies.rs:11-56), the presets' strategy."""
+    """The reference's reduction strategies (fri/reduction_strategies.rs:
+    11-130): ``kind`` "constant_arity" (``ConstantArityBits(arity_bits,
+    final_poly_bits)``, the presets'), "fixed" (the arities ``fixed``) or
+    "min_size" (``MinSize(max_arity_bits)``), which a read circuit may
+    carry: its FRI parameters hold the arities, so the port does not
+    search them."""
 
     arity_bits: int = 4
     final_poly_bits: int = 5
+    kind: str = "constant_arity"
+    fixed: Tuple[int, ...] = ()
+    max_arity_bits: Optional[int] = None
 
     def reduction_arity_bits(self, degree_bits: int, rate_bits: int,
                              cap_height: int) -> List[int]:
+        if self.kind == "fixed":
+            return list(self.fixed)
+        if self.kind != "constant_arity":
+            raise NotImplementedError(
+                f"the {self.kind} reduction strategy's arity search")
         out = []
         db = degree_bits
         while (db > self.final_poly_bits

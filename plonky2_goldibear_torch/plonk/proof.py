@@ -34,6 +34,15 @@ class FriInitialTreeProof:
     # one (leaf values, merkle siblings) pair per oracle
     evals_proofs: List[Tuple[List[int], List[Digest]]]
 
+    def unsalted_eval(self, oracle_index: int, poly_index: int,
+                      salted: bool, salt_size: int = 4) -> int:
+        """The leaf value of a polynomial; a salted leaf ends in
+        ``salt_size`` salt elements (reference fri/proof.rs)."""
+        evals = self.evals_proofs[oracle_index][0]
+        if salted:
+            evals = evals[:len(evals) - salt_size]
+        return evals[poly_index]
+
 
 @dataclass
 class FriQueryRound:
@@ -134,4 +143,5 @@ def flatten_proof(pwpi) -> Dict[str, np.ndarray]:
         "pow_witness": _u64([fri.pow_witness]),
         "query_rounds": _u64(_flat(queries)),
     }
+
 

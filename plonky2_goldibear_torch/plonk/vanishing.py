@@ -7,17 +7,24 @@ domain torch ops rather than one op per wire or per term: on the card the
 plain-torch field arithmetic is bound by launches.  Field arithmetic is
 exact, so the stacked order gives the JAX package's values bit for bit.
 The challenges are scalar tensors of the field module ``F`` (``gl`` or
-``bb``).  No lookup terms: lookup circuits are
-not ported yet.
+``bb``).
+
+The verifier evaluates the same polynomial at one point zeta on the host:
+the ``*_a`` functions and ``eval_l_0_host`` work over an algebra ``A``
+(``gates/base.py``: ``HostExtAlgebra`` at zeta), each gate through its
+``eval_unfiltered``, with the challenges as python ints (the JAX
+package's ``plonk/vanishing.py``, generic form).  No lookup terms: lookup
+circuits are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 
-from ..gates.base import compute_filter
+from ..field import host
+from ..gates.base import EvaluationVars, compute_filter, eval_filtered
 
 
 def evaluate_gate_constraints(F, common, wires: torch.Tensor,
@@ -102,3 +109,90 @@ def eval_vanishing_poly(F, common, x, l_0_x, wires, constants, pi_hash,
                       + [constraint_terms])
     return [reduce_with_powers(F, terms, alphas[i])
             for i in range(common.config.num_challenges)]
+
+
+# -- at one point, over an algebra (the verifier) ---------------------------
+
+
+def evaluate_gate_constraints_a(A, common, vars: EvaluationVars) -> List:
+    """At each constraint position, the sum over gates of filter *
+    constraint (reference vanishing_poly.rs:703-738)."""
+    si = common.selectors_info
+    constraints = [A.zero()] * common.num_gate_constraints
+    for i, gate in enumerate(common.gates):
+        sel = si.selector_indices[i]
+        eval_filtered(A, gate, vars, i, sel, si.groups[sel],
+                      si.num_selectors, common.num_lookup_selectors,
+                      constraints)
+    return constraints
+
+
+def check_partial_products_a(A, numerators: Sequence,
+                             denominators: Sequence, partials: Sequence,
+                             z_x, z_gx, max_degree: int) -> List:
+    """prev * prod(numerator chunk) - next * prod(denominator chunk) per
+    chunk (reference util/partial_products.rs:53-80)."""
+    n = len(numerators)
+    accs = [z_x] + list(partials) + [z_gx]
+    out = []
+    for chunk, lo in enumerate(range(0, n, max_degree)):
+        hi = min(lo + max_degree, n)
+        num_prod = A.mul_many(numerators[lo:hi])
+        den_prod = A.mul_many(denominators[lo:hi])
+        out.append(A.mul_sub(accs[chunk], num_prod,
+                             A.mul(accs[chunk + 1], den_prod)))
+    assert len(out) == len(partials) + 1
+    return out
+
+
+def reduce_with_powers_a(A, terms: Sequence, alpha) -> object:
+    """sum_i alpha^i terms[i], alpha a base-field scalar, by Horner
+    (reference plonk_common.rs:122-135)."""
+    cumul = A.zero()
+    for term in reversed(list(terms)):
+        cumul = A.add(A.mul_scalar(cumul, alpha), term)
+    return cumul
+
+
+def eval_vanishing_poly_a(A, common, x, l_0_x, vars: EvaluationVars,
+                          local_zs: Sequence, next_zs: Sequence,
+                          partial_products: Sequence, s_sigmas: Sequence,
+                          betas: Sequence[int], gammas: Sequence[int],
+                          alphas: Sequence[int]) -> List:
+    """One combined value per alpha (reference vanishing_poly.rs:57-180),
+    the terms in ``eval_vanishing_poly``'s order: the z(1) terms, the
+    partial-product checks, the gate constraints."""
+    max_degree = common.quotient_degree_factor
+    num_prods = common.num_partial_products
+    num_routed = common.config.num_routed_wires
+    constraint_terms = evaluate_gate_constraints_a(A, common, vars)
+    s_ids = [A.k_const_mul(common.k_is[j], x) for j in range(num_routed)]
+    z_1_terms, pp_terms = [], []
+    for i in range(common.config.num_challenges):
+        z_x, z_gx = local_zs[i], next_zs[i]
+        z_1_terms.append(A.mul_sub(l_0_x, z_x, l_0_x))
+        gamma = A.lift_scalar(gammas[i])
+        numerators, denominators = [], []
+        for j in range(num_routed):
+            wvpg = A.add(vars.local_wires[j], gamma)
+            numerators.append(A.scalar_mul_add(betas[i], s_ids[j], wvpg))
+            denominators.append(A.scalar_mul_add(betas[i], s_sigmas[j],
+                                                 wvpg))
+        pp_terms += check_partial_products_a(
+            A, numerators, denominators,
+            partial_products[i * num_prods:(i + 1) * num_prods],
+            z_x, z_gx, max_degree)
+    terms = z_1_terms + pp_terms + constraint_terms
+    return [reduce_with_powers_a(A, terms, alphas[i])
+            for i in range(common.config.num_challenges)]
+
+
+def eval_l_0_host(A, n: int, x, x_pow_n):
+    """L_0(x) = (x^n - 1) / (n (x - 1)) on the host extension algebra
+    (reference plonk_common.rs:59-70)."""
+    spec = A.spec
+    one = A.one()
+    if tuple(x) == tuple(one):
+        return one
+    denom = A.mul_base_const(A.sub(x, one), n % spec.p)
+    return host.ext_mul(spec, A.sub(x_pow_n, one), host.ext_inv(spec, denom))
