@@ -59,6 +59,21 @@
    ``verify_s`` (host seconds, median of 3) of the 2^14 proof and of each
    field's 2^12 proof is printed on its own line.
 
+6. the recursive verifier (``circuits.recursive_verifier``, the reference's
+   headline recursion): over the Goldilocks 2^12 chain and its proof from
+   phase 4, builds the outer circuit on the card 3 times (``gadgets_s``,
+   ``build_s`` and its phases, the build's kernel launches) and holds its
+   common data, constants/sigmas cap and digest against the JAX build
+   (``data/recursive_gl_2e12inner_{common,verifier}.bin``, read by the
+   port's reader); sets the inner proof and verifier data as its witness
+   and generates it (``witgen_s``, 3 times); proves it warm 3 times
+   (recursive prove latency, phase seconds, every kernel's launches over
+   one prove, which each GL kernel must have); profiles one more prove;
+   verifies the proof with ``CircuitData.verify`` and rejects a copy with
+   one wire opening changed; then holds each kernel against its plain
+   version at every shape the outer's build and prove launch it on.  It
+   runs before phase 5, which verifies (and times) its proof too.
+
 Between 3 and 4, the probe phase: each dependent-chain probe kernel
 (``ops/probes.py``: GL multiply, squaring, two x^7 S-boxes, u32 multiply,
 multiply-and-mask, add, f32 FMA) is held against its plain version at a
@@ -109,6 +124,9 @@ PRESETS = {"goldilocks": "standard_recursion_config_gl",
            "babybear": "standard_recursion_config_bb"}
 RUST_PROOF = "tests/data/gl_regression_{}.bin"   # the reference's 2^14 proof
 SMALL_BITS = 6                # a second fixture: small trees, mostly tail
+# the JAX build of the recursive verifier over the GL 2^12 chain
+OUTER_BIN = "plonky2_goldibear_torch/data/recursive_gl_2e12inner_{}.bin"
+
 # Merkle trees checked besides the prove's: FRI layers to a cap of 16 and
 # a tree to its root (one subtree for the tail)
 EXTRA_TREES = ((1 << 11, 7), (1 << 7, 3), (1 << 15, 15))
@@ -321,6 +339,151 @@ def phase_verify(made, failures) -> dict:
     for label, result in results.items():
         print(f"verify {label}: {result}")
     return verify_s
+
+
+def phase_recursion(inner, inner_proof, report, failures, calls) -> list:
+    """Phase 6 (see the module docstring): the outer circuit over ``inner``
+    (a GL 2^12 ``CircuitData``) and ``inner_proof``; ``calls`` gets the
+    kernel calls of one build ("build") and one prove ("prove").  Returns
+    [(label, outer proof, verifier data, common data)] for phase 5."""
+    import copy
+
+    import torch
+
+    from plonky2_goldibear_torch import circuits, ops
+    from plonky2_goldibear_torch.iop.generator import NonRandomRng
+    from plonky2_goldibear_torch.iop.witness import PartialWitness
+    from plonky2_goldibear_torch.plonk import prover
+    from plonky2_goldibear_torch.plonk import serialization as ser
+    from plonky2_goldibear_torch.plonk.builder import CircuitBuilder
+    from plonky2_goldibear_torch.plonk.verifier import VerificationError
+    from plonky2_goldibear_torch.recursion import recursive_verifier as rv
+
+    rec = {"gadgets_s": [], "build_s": [], "build_phases": [],
+           "witgen_s": []}
+    for rep in range(3):
+        b = CircuitBuilder(inner.common.config)
+        t0 = time.perf_counter()
+        proof_t, vk_t = circuits.recursive_verifier(b, inner.common)
+        rec["gadgets_s"].append(time.perf_counter() - t0)
+        timings = {}
+        ops.reset_launches()
+        if rep == 0:
+            ops.calls = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            outer = b.build(device="cuda", timings=timings)
+            torch.cuda.synchronize()
+        finally:
+            if rep == 0:
+                calls["build"], ops.calls = ops.calls, None
+        rec["build_s"].append(time.perf_counter() - t0)
+        rec["build_phases"].append(timings)
+        build_launches = ops.launch_counts()
+        pw = PartialWitness()
+        rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
+        rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
+        t0 = time.perf_counter()
+        circuit = outer.circuit(pw, NonRandomRng(1))
+        torch.cuda.synchronize()
+        rec["witgen_s"].append(time.perf_counter() - t0)
+
+    def blob(part):
+        with open(os.path.join(ROOT, OUTER_BIN.format(part)), "rb") as f:
+            return f.read()
+
+    want = ser.read_common_circuit_data(blob("common"))
+    common = outer.common
+    ok = {
+        "degree_bits": common.degree_bits == want.degree_bits == 12,
+        "config": common.config == want.config,
+        "fri_params": common.fri_params == want.fri_params,
+        "gates": [g.id() for g in common.gates]
+        == [g.id() for g in want.gates],
+        "selectors": common.selectors_info.selector_indices
+        == want.selectors_info.selector_indices
+        and [tuple(g) for g in common.selectors_info.groups]
+        == [tuple(g) for g in want.selectors_info.groups],
+        "counts": all(getattr(common, k) == getattr(want, k) for k in (
+            "quotient_degree_factor", "num_gate_constraints",
+            "num_constants", "num_public_inputs", "k_is",
+            "num_partial_products")),
+        "constants_sigmas_cap_and_digest": outer.verifier_only
+        == ser.read_verifier_only_circuit_data(blob("verifier")),
+        "public_inputs": circuit.public_inputs
+        == list(inner_proof.public_inputs),
+    }
+    print("recursive 2^12 built by the port vs the JAX build: "
+          + json.dumps(ok))
+    failures.extend(f"recursive build: {k} differs from the JAX build"
+                    for k, v in ok.items() if not v)
+    med = {k: statistics.median(rec[k])
+           for k in ("gadgets_s", "build_s", "witgen_s")}
+    for k, v in med.items():
+        print(f"recursive {k} {v:.4f} (median of 3: "
+              f"{[round(t, 4) for t in rec[k]]})")
+    print("recursive build phases (s, median of 3): " + json.dumps(
+        {k: round(statistics.median(p[k] for p in rec["build_phases"]), 4)
+         for k in rec["build_phases"][0]}))
+    print("recursive build launches: " + json.dumps(
+        {k: v for k, v in build_launches.items() if v}))
+
+    prover.prove(circuit, device="cuda")            # warm-up
+    ops.calls = []
+    try:
+        prover.prove(circuit, device="cuda")
+    finally:
+        calls["prove"], ops.calls = ops.calls, None
+    times, phases = [], []
+    for _ in range(3):
+        ops.reset_launches()
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = prover.prove(circuit, device="cuda", timings=timings)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        run_counts = ops.launch_counts()
+        phases.append(timings)
+    median_phases = {k: statistics.median(p[k] for p in phases)
+                     for k in phases[0]}
+    print(f"recursive prove 2^12 on cuda: median "
+          f"{statistics.median(times):.4f} s of "
+          f"{[round(t, 4) for t in times]}")
+    print("recursive phases (s, median of 3): " + json.dumps(
+        {k: round(v, 4) for k, v in median_phases.items()}))
+    print("recursive launches in one prove: " + json.dumps(run_counts))
+    for k in ("ntt", "permute", "leaf_sponge", "merkle_levels"):
+        if run_counts.get(k, 0) <= 0:
+            failures.append(f"kernel {k} was not launched by the recursive "
+                            "prove")
+    prof = _profile(lambda: prover.prove(circuit, device="cuda"),
+                    statistics.median(times) * 1e3)
+    print(f"recursive profile of one prove: device "
+          f"{prof['device_ms']:.2f} ms; busy share "
+          f"{prof['device_busy_share']:.4f} of the median unprofiled prove "
+          f"({prof['wall_ms']:.2f} ms)")
+    for k in prof["kernels"][:PROFILE_TOP]:
+        print(f"  {k['ms']:10.4f} ms {k['launches']:6d} x "
+              f"{k['name'][:110]}")
+
+    outer.verify(proof)
+    bad = copy.deepcopy(proof)
+    wires = bad.proof.openings.wires
+    wires[0] = ((wires[0][0] + 1) % common.spec.p,) + tuple(wires[0][1:])
+    try:
+        outer.verify(bad)
+        failures.append("recursive: a tampered copy was accepted")
+    except VerificationError:
+        print("recursive 2^12 proof: verified; tampered copy rejected")
+    report["recursive"] = dict(
+        rec, equal=ok, prove_s=times, phases=median_phases,
+        launches=run_counts, profile=prof,
+        build_launches={k: v for k, v in build_launches.items() if v},
+        degree_bits=common.degree_bits)
+    return [("goldilocks_recursive_2e12", proof, outer.verifier_only,
+             outer.common)]
 
 
 def main() -> int:
@@ -606,6 +769,22 @@ def main() -> int:
     from plonky2_goldibear_torch.ops import probes as K_probe
 
     probe_checks, probe_recs, probe_counts = {}, {}, {}
+    probe_rate = {}
+
+    def probe_bound(key, c):
+        """Add the probe bound to the check ``c`` (the card-filling rates
+        of ``probe_rate``) and print it."""
+        if "bb" in c["kernel"]:
+            t_ops = c["field_muls"] * MULS_PER_FIELD_MUL / probe_rate["mul"]
+        elif c["sboxes"] is not None:
+            t_ops = c["sboxes"] / probe_rate["sbox"]
+        else:
+            t_ops = c["field_muls"] / probe_rate["gl"]
+        c["probe_bound_ms"], c["probe_bound_by"] = larger(
+            c["bytes"] / MEM_BYTES_PER_S * 1e3, t_ops * 1e3)
+        print(f"probe bound {key}: " + json.dumps(
+            {k: c[k] for k in ("kernel", "ms", "bound_ms",
+                               "probe_bound_ms", "probe_bound_by")}))
     try:
         for step, (ops_per_rep, per_sm_clk, library) in PROBES.items():
             section = next(k for k, v in runner.SECTIONS.items()
@@ -659,22 +838,11 @@ def main() -> int:
                         for step in PROBES
                         if probe_counts["probe_" + step] <= 0)
         # the probe bound of every phase-3 check, from the card-filling rates
-        rate = {s: probe_recs[s]["fill"]["G_ops_per_s"] * 1e9
-                for s in ("gl", "sbox", "mul")}
+        probe_rate.update({s: probe_recs[s]["fill"]["G_ops_per_s"] * 1e9
+                           for s in ("gl", "sbox", "mul")})
         for key, c in report["checks"].items():
-            if c["kernel"].startswith("probe_"):
-                continue
-            if "bb" in c["kernel"]:
-                t_ops = c["field_muls"] * MULS_PER_FIELD_MUL / rate["mul"]
-            elif c["sboxes"] is not None:
-                t_ops = c["sboxes"] / rate["sbox"]
-            else:
-                t_ops = c["field_muls"] / rate["gl"]
-            c["probe_bound_ms"], c["probe_bound_by"] = larger(
-                c["bytes"] / MEM_BYTES_PER_S * 1e3, t_ops * 1e3)
-            print(f"probe bound {key}: " + json.dumps(
-                {k: c[k] for k in ("kernel", "ms", "bound_ms",
-                                   "probe_bound_ms", "probe_bound_by")}))
+            if not c["kernel"].startswith("probe_"):
+                probe_bound(key, c)
     except Exception as e:
         failures.append(f"probe phase: {type(e).__name__}: {e}")
 
@@ -816,6 +984,8 @@ def main() -> int:
     # every proof made on the card, for phase 5: (label, proof, verifier
     # data, common data)
     made = []
+    # each field's 2^12 chain and its proof, the inner of phase 6
+    mains = {}
     for field, counters in path_kernels.items():
         try:
             # the port's own circuit at 2^6, and its retry through
@@ -864,6 +1034,7 @@ def main() -> int:
             check_proof(field, MAIN_BITS, proof, arrays)
             made.append((f"{field}_2e{MAIN_BITS}", proof, data.verifier_only,
                          data.common))
+            mains[field] = (data, proof)
             # one whole CircuitData.prove: witness generation and prove
             whole = {}
             torch.cuda.synchronize()
@@ -908,6 +1079,29 @@ def main() -> int:
                                     f"{field} prove")
         except Exception as e:
             failures.append(f"{field} main path: {type(e).__name__}: {e}")
+
+    # -- phase 6: the recursive verifier over the GL 2^12 chain -------------
+    recursive_calls = {}
+    try:
+        if "goldilocks" not in mains:
+            raise RuntimeError("no GL 2^12 chain proof from phase 4")
+        inner, inner_proof = mains["goldilocks"]
+        made += phase_recursion(inner, inner_proof, report, failures,
+                                recursive_calls)
+        # every kernel at each shape the outer's build and prove launch
+        done = {tuple(c) for calls in (*prove_calls.values(),
+                                       *build_calls.values()) for c in calls}
+        for call in sorted({tuple(c) for calls in recursive_calls.values()
+                            for c in calls} - done):
+            prove_shape_check(call)
+            key = _shape_key(call)
+            report["checks"][key]["call"] = list(call)
+            if probe_rate:
+                probe_bound(key, report["checks"][key])
+        report["recursive_calls"] = recursive_calls
+        print("recursive calls: " + json.dumps(recursive_calls))
+    except Exception as e:
+        failures.append(f"recursion phase: {type(e).__name__}: {e}")
 
     # -- phase 5: the verifier, on the host ----------------------------------
     try:

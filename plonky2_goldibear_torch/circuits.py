@@ -70,3 +70,111 @@ def builder_mix(builder) -> List:
 
 
 MIX_INPUTS = (3, 5)
+
+
+def recursive_verifier(builder, inner_common, rv=None):
+    """The recursive-verifier circuit of ``bench.py:bench_prove_recursive``
+    (the reference's plonky2/benches/recursion.rs:154-202): targets of a
+    proof of a circuit of ``inner_common`` and of its verifier data, the
+    proof verified in the circuit, its public inputs made the outer
+    circuit's.  ``rv`` is the recursive-verifier module of the builder's
+    package (the port's by default).  Returns (proof targets, verifier-data
+    targets); the witness sets them with ``rv.set_proof_with_pis_target``
+    and ``rv.set_verifier_data_target``."""
+    if rv is None:
+        from .recursion import recursive_verifier as rv
+    proof_t = rv.add_virtual_proof_with_pis(builder, inner_common)
+    vk_t = rv.add_virtual_verifier_data(
+        builder, inner_common.config.fri_config.cap_height)
+    rv.verify_proof(builder, proof_t, vk_t, inner_common)
+    builder.register_public_inputs(proof_t.public_inputs)
+    return proof_t, vk_t
+
+
+EXT_MIX_INPUTS = (3, 5, 7, 11, 13, 1, 0, 21)
+
+
+def ext_mix(builder, gd, coset_gate) -> List:
+    """A circuit over every extension-arithmetic op of the builder and
+    every recursive-verifier gadget of ``gd`` (the package's
+    ``plonk/gadgets.py``), with the 8 gates they place; ``coset_gate`` is
+    the package's CosetInterpolationGate of 2^2 points at degree 8.
+    Returns the 8 input targets; the witness sets them to
+    ``EXT_MIX_INPUTS`` (the sixth and seventh are bits)."""
+    b = builder
+    ins = b.add_virtual_targets(8)
+    a, c, e, f, g, bit1, bit0, wide = ins
+    x = (a, c)
+    y = b.add_virtual_extension_target()
+    b.connect_extension(y, (e, f))
+    # the extension arithmetic and its special cases
+    s = b.add_extension(x, y)
+    d = b.sub_extension(s, b.mul_extension(x, y))
+    m = b.mul_add_extension(d, s, x)
+    m = b.mul_sub_extension(m, y, d)
+    m = b.add_extension(b.square_extension(m), b.cube_extension(x))
+    m = b.mul_const_add_extension(9, m, b.mul_const_extension(5, y))
+    m = b.add_const_extension(m, 17)
+    m = b.scalar_mul_add_extension(g, m, b.scalar_mul_ext(a, y))
+    m = b.scalar_mul_sub_extension(c, m, x)
+    m = b.mul_extension_with_const(3, m, y)
+    assert b.mul_extension(x, b.one_extension()) == x
+    assert b.add_extension(b.zero_extension(), y) == y
+    k = b.arithmetic_extension(2, 3, b.constant_extension((4, 5)),
+                               b.constant_extension(6), b.one_extension())
+    m = b.add_many_extension([m, k, x, y])
+    p = b.mul_many_extension([m, x, y])
+    pows = [b.exp_u64_extension(x, n) for n in (0, 1, 2, 3, 13)]
+    q = b.div_extension(p, y)
+    r = b.add_extension(b.inverse_extension(x), b.div_add_extension(m, s, q))
+    b.connect_extension(b.mul_extension(q, y), p)
+    # base-field many
+    t = b.add_many([a, c, e, f, g])
+    u = b.mul_many([a, c, e])
+    # select, bits, exponents
+    gd.assert_bool(b, bit1)
+    sel = gd.select(b, bit1, t, u)
+    sel_ext = gd.select_ext(b, bit0, x, y)
+    bits = gd.split_le(b, wide, 6)
+    low = gd.low_bits(b, u, 4, True, 64)
+    summed = gd.le_sum(b, bits)
+    b.connect(summed, wide)
+    long_sum = gd.le_sum(b, low + bits + bits + low + bits)
+    gd.range_check(b, t, 20)
+    gd.assert_leading_zeros(b, t, 40)
+    ex = gd.exp_from_bits_const_base(b, 7, bits[:4])
+    ex2 = gd.exp_power_of_2(b, e, 4)
+    ex3 = gd.exp_power_of_2_extension(b, y, 3)
+    # random access
+    items = [b.add_const(a, i) for i in range(16)]
+    idx = gd.le_sum(b, bits[:4])
+    ra = gd.random_access(b, idx, items)
+    ra_ext = gd.random_access_extension(b, gd.le_sum(b, [bit1, bit0]),
+                                        [x, y, s, d])
+    # a coset interpolation at an extension point
+    ci = gd.interpolate_coset(b, coset_gate, b.add_const(a, 1),
+                              [x, y, s, d], m)
+    # reductions: mul_add chains, then Reducing(Extension)Gate rows
+    red = gd.ReducingFactorTarget(y)
+    short = red.reduce([x, s, d], b)
+    red_b = red.reduce_base([a, c, e], b)
+    long_e = red.reduce(pows + [m, p, q, r, x, y, s, d] * 5, b)
+    long_b = red.reduce_base(items * 4, b)
+    shifted = red.shift(long_e, b)
+    # a Merkle proof to a cap of two: leaves hashed in the circuit
+    leaves = [[b.add_const(items[i], j) for j in range(5)] for i in range(4)]
+    digests = [b.hash_or_noop(leaf) for leaf in leaves]
+    zero = b.zero()
+    width = b.hasher.WIDTH
+    cap = [b.permute(digests[i] + digests[i + 1]
+                     + [zero] * (width - 8))[:4] for i in (0, 2)]
+    gd.verify_merkle_proof_to_cap_with_cap_index(
+        b, leaves[2], [bit0], b.one(), cap, [digests[3]])
+    gd.verify_merkle_proof_to_cap_with_cap_index(
+        b, leaves[1], [bit1], b.zero(), cap, [digests[0]])
+    cap_entry = gd.random_access_hash(b, bit1, cap)
+    b.register_public_inputs(
+        [sel, ex, ex2, ra, long_sum] + list(sel_ext) + list(ra_ext)
+        + list(ci) + list(short) + list(red_b) + list(long_b) + list(shifted)
+        + list(ex3) + list(r) + cap_entry)
+    return ins

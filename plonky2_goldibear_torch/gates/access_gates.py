@@ -1,12 +1,16 @@
 """RandomAccessGate and BaseSumGate, constraint side (reference
 plonky2/src/gates/{random_access.rs, base_sum.rs}; the JAX package's
-``gates/access_gates.py``).  Witness generators and quotient evaluation:
-ROADMAP Queue 1 item 4.
+``gates/access_gates.py``).  The recursive verifier's list lookups
+(``plonk/gadgets.py:random_access``) and bit splits (``split_le``) place
+them.  ``ExponentiationGate`` (tag 5) is not ported: ROADMAP Queue 1 item
+4b.
 """
 
 from __future__ import annotations
 
-from .base import Gate, generators_not_ported
+from ..iop import generator as gen
+from ..iop import target as tgt
+from .base import Gate
 
 
 class RandomAccessGate(Gate):
@@ -21,6 +25,16 @@ class RandomAccessGate(Gate):
         self.num_copies = num_copies
         self.num_ops = num_copies
         self.num_extra_constants = num_extra_constants
+
+    @classmethod
+    def from_config(cls, config, bits: int):
+        """As many copies as the wires hold; the routed wires left over
+        carry extra constants (reference random_access.rs:46-66)."""
+        vec_size = 1 << bits
+        max_copies = min(config.num_routed_wires // (2 + vec_size),
+                         config.num_wires // (2 + vec_size + bits))
+        max_extra = config.num_routed_wires - (2 + vec_size) * max_copies
+        return cls(bits, max_copies, min(max_extra, config.num_constants))
 
     def id(self):
         return (f"RandomAccessGate {{ bits: {self.bits}, num_copies: "
@@ -65,7 +79,9 @@ class RandomAccessGate(Gate):
         return [(i, self.wire_extra_constant(i))
                 for i in range(self.num_extra_constants)]
 
-    generators = generators_not_ported
+    def generators(self, row, local_constants, spec):
+        return [_RandomAccessGenerator(self, row, copy)
+                for copy in range(self.num_copies)]
 
     def eval_unfiltered(self, A, vars):
         lw = vars.local_wires
@@ -102,6 +118,16 @@ class BaseSumGate(Gate):
         self.num_limbs = num_limbs
         self.base = base
 
+    @classmethod
+    def from_config(cls, config, spec, base: int):
+        """floor(log_base(p - 1)) limbs, as far as the routed wires allow
+        (reference base_sum.rs:33-40)."""
+        n, v = 0, spec.p - 1
+        while v >= base:
+            v //= base
+            n += 1
+        return cls(min(n, config.num_routed_wires - cls.START_LIMBS), base)
+
     def id(self):
         return (f"BaseSumGate {{ num_limbs: {self.num_limbs} }} + Base: "
                 f"{self.base}")
@@ -121,7 +147,8 @@ class BaseSumGate(Gate):
     def num_constraints(self):
         return 1 + self.num_limbs
 
-    generators = generators_not_ported
+    def generators(self, row, local_constants, spec):
+        return [_BaseSplitGenerator(self, row)]
 
     def eval_unfiltered(self, A, vars):
         limbs = [vars.local_wires[i] for i in self.limbs()]
@@ -130,6 +157,52 @@ class BaseSumGate(Gate):
             computed = A.add(A.mul_base_const(computed, self.base), limb)
         out = [A.sub(computed, vars.local_wires[self.WIRE_SUM])]
         for limb in limbs:
-            out.append(A.mul_many([A.add_base_const(limb, (-i) % A.spec.p)
-                                   for i in range(self.base)]))
+            # a chain of products, as the reference's circuit form emits it
+            acc = None
+            for i in range(self.base):
+                term = A.add_base_const(limb, (-i) % A.spec.p)
+                acc = term if acc is None else A.mul(acc, term)
+            out.append(acc)
         return out
+
+
+class _RandomAccessGenerator(gen.SimpleGenerator):
+    """The claimed element and the index bits of one copy."""
+
+    def __init__(self, gate, row, copy):
+        self.gate, self.row, self.copy = gate, row, copy
+
+    def dependencies(self):
+        g, c = self.gate, self.copy
+        return [tgt.wire(self.row, w) for w in
+                [g.wire_access_index(c)]
+                + [g.wire_list_item(i, c) for i in range(g.vec_size)]]
+
+    def run_once(self, witness, out):
+        g, c = self.gate, self.copy
+        idx = witness.get_target(tgt.wire(self.row, g.wire_access_index(c)))
+        assert idx < g.vec_size, f"access index {idx} >= {g.vec_size}"
+        out.append((tgt.wire(self.row, g.wire_claimed_element(c)),
+                    witness.get_target(
+                        tgt.wire(self.row, g.wire_list_item(idx, c)))))
+        for i in range(g.bits):
+            out.append((tgt.wire(self.row, g.wire_bit(i, c)),
+                        (idx >> i) & 1))
+
+
+class _BaseSplitGenerator(gen.SimpleGenerator):
+    """The limbs of the sum, least significant first."""
+
+    def __init__(self, gate, row):
+        self.gate, self.row = gate, row
+
+    def dependencies(self):
+        return [tgt.wire(self.row, BaseSumGate.WIRE_SUM)]
+
+    def run_once(self, witness, out):
+        g = self.gate
+        v = witness.get_target(tgt.wire(self.row, BaseSumGate.WIRE_SUM))
+        for i in g.limbs():
+            out.append((tgt.wire(self.row, i), v % g.base))
+            v //= g.base
+        assert v == 0, "sum does not fit in limbs"

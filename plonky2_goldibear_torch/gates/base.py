@@ -3,22 +3,25 @@
 The builder side of a gate (``num_wires``, ``num_constants``, ``degree``,
 ``generators``, ``extra_constant_wires``, ``complete_wires``; the JAX
 package's ``gates/base.py:269-284``) places it in a circuit and fills its
-wires.  On the constraint side a gate evaluates its constraints over every
-point of the quotient domain at once (the reference's
-``eval_unfiltered_base_batch``, batched over the whole domain):
-``eval_unfiltered_device(F, wires, constants, pi_hash)``
-takes the field module ``F`` (``gl`` or ``bb``), the stacked wires
-(num_wires, m), the gate constants (k, m) and the public-input hash (4 or
-8 scalar tensors) and returns a (num_constraints, m) tensor.
+wires.  A gate's constraints are written once, ``eval_unfiltered(A,
+vars)``, over an algebra ``A`` (the JAX package's ``gates/base.py``):
+``HostExtAlgebra`` works on D-tuples of python ints (the verifier at
+zeta), ``HostBaseAlgebra`` on python ints (one base-field point),
+``DeviceBaseAlgebra`` on field tensors holding every point of the quotient
+domain at once (the prover's quotient, the reference's
+``eval_unfiltered_base_batch`` batched over the whole domain), and
+``gates/circuit_algebra.py:CircuitExtAlgebra`` on extension targets (the
+recursive verifier's constraint check, built into a circuit).  An
+extension gate's operand is a D-vector of algebra values, multiplied with
+``ext_algebra_mul`` in F_D[X]/(X^D - W).
 
-The verifier evaluates the same constraints at one extension point, on
-the host: ``eval_unfiltered(A, vars)`` is written once over an algebra
-``A`` (the JAX package's ``gates/base.py``).  ``HostExtAlgebra`` works on
-D-tuples of python ints (the verifier at zeta), ``HostBaseAlgebra`` on
-python ints (one base-field point, where a test holds the two forms
-against each other).  An extension gate's operand at zeta is a D-vector of
-extension elements, multiplied with ``ext_algebra_mul`` in
-F_D[X]/(X^D - W).
+The two Poseidon gates also keep a stacked form for the prover,
+``eval_unfiltered_device(F, wires, constants, pi_hash)``: the field module
+``F`` (``gl`` or ``bb``), the stacked wires (num_wires, m), the gate
+constants (k, m) and the public-input hash (4 or 8 scalar tensors) in, a
+(num_constraints, m) tensor out.  It runs a round's S-boxes and MDS over
+all 12 or 16 lanes in a few whole-domain ops where the algebra takes one
+op per lane; ``plonk/vanishing.py:gate_constraints_device`` prefers it.
 
 Selector filtering (reference gate.rs:391-430): filter = prod over the
 gate's selector group of (i - s), times (UNUSED - s) when the circuit has
@@ -27,7 +30,7 @@ several selector polynomials.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -77,6 +80,15 @@ class _FusedOpsMixin:
         x3 = self.mul(x2, x)
         x4 = self.mul(x2, x2)
         return self.mul(x3, x4)
+
+    def reduce_with_powers(self, terms, alpha):
+        """sum_i alpha^i terms[i], alpha a base-field scalar, by Horner
+        (reference plonk_common.rs:122-135; the circuit algebra reduces
+        with Reducing gates instead)."""
+        cumul = self.zero()
+        for term in reversed(list(terms)):
+            cumul = self.add(self.mul_scalar(cumul, alpha), term)
+        return cumul
 
 
 class HostExtAlgebra(_FusedOpsMixin):
@@ -155,6 +167,62 @@ class HostBaseAlgebra(_FusedOpsMixin):
         return s % self.p
 
 
+class DeviceBaseAlgebra(_FusedOpsMixin):
+    """The base field on field tensors of the module ``F`` (``gl`` or
+    ``bb``) on ``device``: a value is an (m,) tensor over the points of the
+    quotient domain, or a 0-d tensor that broadcasts (a constant, a
+    challenge).  Each op is a few whole-domain torch ops."""
+
+    def __init__(self, F, device):
+        self.F = F
+        self.spec = F.SPEC
+        self.device = device
+        self._consts: Dict[int, torch.Tensor] = {}
+
+    def from_int(self, c: int):
+        c %= self.spec.p
+        t = self._consts.get(c)
+        if t is None:
+            t = self._consts[c] = self.F.full((), c, self.device)
+        return t
+
+    def zero(self):
+        return self.from_int(0)
+
+    def one(self):
+        return self.from_int(1)
+
+    def add(self, a, b):
+        return self.F.add(a, b)
+
+    def sub(self, a, b):
+        return self.F.sub(a, b)
+
+    def mul(self, a, b):
+        return self.F.mul(a, b)
+
+    def mul_base_const(self, a, c: int):
+        return self.F.mul(a, self.from_int(c))
+
+    def add_base_const(self, a, c: int):
+        return self.F.add(a, self.from_int(c))
+
+    # a "scalar" is a base-field challenge: a 0-d tensor
+    def mul_scalar(self, a, s):
+        return self.F.mul(a, s)
+
+    def lift_scalar(self, s):
+        return s
+
+    def mul_many(self, terms):
+        """One log-depth ``batch_prod`` over the stacked terms."""
+        terms = list(terms)
+        if len(terms) <= 2:
+            return super().mul_many(terms)
+        return self.F.batch_prod(torch.stack(torch.broadcast_tensors(
+            *terms)), axis=0)
+
+
 class EvaluationVars:
     """The local constants and wires of a row and the public-input hash,
     as algebra values (reference plonk/vars.rs)."""
@@ -166,24 +234,12 @@ class EvaluationVars:
         self.public_inputs_hash = list(public_inputs_hash)
 
 
-def _not_ported(gate, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {what} of {gate.id()} is not ported yet "
-        "(ROADMAP Queue 1 item 4)")
-
-
-def generators_not_ported(gate, row, local_constants, spec):
-    """``generators`` of a gate the port reads and verifies but does not
-    yet place in a circuit."""
-    raise _not_ported(gate, "witness generators")
-
-
 class Gate:
     """Base gate.  Subclasses define id() (the reference's Rust Debug
     string), num_wires(), num_constants(), degree(), num_constraints(),
-    eval_unfiltered() (the host form, over an algebra),
-    eval_unfiltered_device() (the stacked form the prover uses) and, where
-    they fill wires, generators(); ``num_ops`` is the slot capacity of a
+    eval_unfiltered() (over an algebra) and, where they fill wires,
+    generators(); the two Poseidon gates also define the stacked
+    eval_unfiltered_device(); ``num_ops`` is the slot capacity of a
     slot-packed gate."""
 
     num_ops = 1
@@ -222,11 +278,6 @@ class Gate:
     def eval_unfiltered(self, A, vars: EvaluationVars) -> List:
         """The constraints at one point, as algebra values."""
         raise NotImplementedError
-
-    def eval_unfiltered_device(self, F, wires: torch.Tensor,
-                               constants: torch.Tensor,
-                               pi_hash) -> torch.Tensor:
-        raise _not_ported(self, "quotient evaluation")
 
     def __eq__(self, other):
         return isinstance(other, Gate) and self.id() == other.id()

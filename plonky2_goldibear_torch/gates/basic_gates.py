@@ -5,8 +5,6 @@ Debug formatting, as in the JAX package."""
 
 from __future__ import annotations
 
-import torch
-
 from ..iop import generator as gen
 from ..iop import target as tgt
 from .base import Gate
@@ -47,13 +45,6 @@ class ArithmeticGate(Gate):
         c0, c1 = int(local_constants[0]), int(local_constants[1])
         return [_ArithmeticOpGenerator(row, c0, c1, i, spec.p)
                 for i in range(self.num_ops)]
-
-    def eval_unfiltered_device(self, F, wires, constants, pi_hash):
-        w = wires[:4 * self.num_ops].reshape(self.num_ops, 4, -1)
-        m0, m1, addend, out = w.unbind(1)
-        computed = F.add(F.mul(F.mul(m0, m1), constants[0]),
-                         F.mul(addend, constants[1]))
-        return F.sub(out, computed)
 
     def eval_unfiltered(self, A, vars):
         c0, c1 = vars.local_constants[0], vars.local_constants[1]
@@ -113,10 +104,6 @@ class ConstantGate(Gate):
     def extra_constant_wires(self):
         return [(i, i) for i in range(self.num_consts)]
 
-    def eval_unfiltered_device(self, F, wires, constants, pi_hash):
-        k = self.num_consts
-        return F.sub(constants[:k], wires[:k])
-
     def eval_unfiltered(self, A, vars):
         return [A.sub(vars.local_constants[i], vars.local_wires[i])
                 for i in range(self.num_consts)]
@@ -144,9 +131,6 @@ class PublicInputGate(Gate):
     def num_constraints(self):
         return self.n
 
-    def eval_unfiltered_device(self, F, wires, constants, pi_hash):
-        return F.sub(wires[:self.n], torch.stack(list(pi_hash))[:, None])
-
     def eval_unfiltered(self, A, vars):
         return [A.sub(vars.local_wires[i], vars.public_inputs_hash[i])
                 for i in range(self.n)]
@@ -169,9 +153,6 @@ class NoopGate(Gate):
 
     def num_constraints(self):
         return 0
-
-    def eval_unfiltered_device(self, F, wires, constants, pi_hash):
-        return F.zeros((0, wires.shape[-1]), wires.device)
 
     def eval_unfiltered(self, A, vars):
         return []

@@ -7,8 +7,10 @@ plonky2/src/gates/coset_interpolation.rs; the JAX package's
 The interpolation runs over the fixed subgroup, with the barycentric
 weights in the gate, and the coset shift goes into the point:
 P(X) = P'(X / shift).  Every (degree - 1)-th intermediate of the running
-(eval, prod) pair is stored in non-routed wires.  Witness generator and
-quotient evaluation: ROADMAP Queue 1 item 4.
+(eval, prod) pair is stored in non-routed wires.  The recursive
+verifier's FRI folds (``fri/recursive_verifier.py``) place it; its
+generator fills the shifted point, the intermediates and the value on the
+host.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from ..field import host
+from ..iop import generator as gen
+from ..iop import target as tgt
 from .base import (Gate, ext_algebra_add, ext_algebra_mul,
-                   ext_algebra_scalar_mul, ext_algebra_sub,
-                   generators_not_ported)
+                   ext_algebra_scalar_mul, ext_algebra_sub)
 
 
 def barycentric_weights_subgroup(spec: host.FieldSpec,
@@ -68,6 +71,19 @@ class CosetInterpolationGate(Gate):
                 spec, subgroup_bits):
             raise ValueError("serialized barycentric weights disagree with "
                              "the subgroup")
+
+    @classmethod
+    def with_max_degree(cls, subgroup_bits: int, max_degree: int,
+                        spec: host.FieldSpec = host.GOLDILOCKS):
+        """The gate of a circuit whose constraints may have degree
+        ``max_degree``: the fewest intermediates, then the least degree
+        for them (reference coset_interpolation.rs:72-90)."""
+        assert max_degree > 1
+        n_points = 1 << subgroup_bits
+        n_intermediates = (n_points - 2) // (max_degree - 1)
+        degree = (n_points - 2) // (n_intermediates + 1) + 2
+        return cls(subgroup_bits, degree,
+                   barycentric_weights_subgroup(spec, subgroup_bits), spec)
 
     def id(self):
         return (f"{self.subgroup_bits},{self.gate_degree},"
@@ -122,7 +138,8 @@ class CosetInterpolationGate(Gate):
     def num_constraints(self):
         return 2 * self.D + 2 * self.D * self.num_intermediates()
 
-    generators = generators_not_ported
+    def generators(self, row, local_constants, spec):
+        return [_InterpolationGenerator(self, row, spec)]
 
     def eval_unfiltered(self, A, vars):
         lw = vars.local_wires
@@ -154,3 +171,59 @@ class CosetInterpolationGate(Gate):
         constraints += ext_algebra_sub(A, ext(self.wires_evaluation_value()),
                                        ev)
         return constraints
+
+
+class _InterpolationGenerator(gen.SimpleGenerator):
+    """The shifted point, the intermediates and the value of the
+    interpolant, on the host (the constraints' own recurrence)."""
+
+    def __init__(self, gate, row, spec):
+        self.gate, self.row, self.spec = gate, row, spec
+
+    def dependencies(self):
+        g = self.gate
+        wires = [g.wire_shift()]
+        for i in range(g.num_points):
+            wires += list(g.wires_value(i))
+        wires += list(g.wires_evaluation_point())
+        return [tgt.wire(self.row, w) for w in wires]
+
+    def run_once(self, witness, out):
+        g, spec = self.gate, self.spec
+
+        def get(w):
+            return witness.get_target(tgt.wire(self.row, w))
+
+        def put(wires, vals):
+            out.extend((tgt.wire(self.row, w), v)
+                       for w, v in zip(wires, vals))
+
+        point = tuple(get(w) for w in g.wires_evaluation_point())
+        shifted = host.ext_scalar_mul(spec, point,
+                                      host.finv(get(g.wire_shift()), spec.p))
+        put(g.wires_shifted_evaluation_point(), shifted)
+        values = [tuple(get(w) for w in g.wires_value(i))
+                  for i in range(g.num_points)]
+
+        def interpolate(lo, hi, ev, prod):
+            for val, w, x_i in zip(values[lo:hi],
+                                   g.barycentric_weights[lo:hi],
+                                   g.domain[lo:hi]):
+                term = host.ext_sub(spec, shifted,
+                                    host.ext_from_base(spec, x_i))
+                ev = host.ext_add(
+                    spec, host.ext_mul(spec, ev, term),
+                    host.ext_mul(spec, host.ext_scalar_mul(spec, val, w),
+                                 prod))
+                prod = host.ext_mul(spec, prod, term)
+            return ev, prod
+
+        d = g.gate_degree
+        ev, prod = interpolate(0, d, host.ext_zero(spec), host.ext_one(spec))
+        for i in range(g.num_intermediates()):
+            put(g.wires_intermediate_eval(i), ev)
+            put(g.wires_intermediate_prod(i), prod)
+            start = 1 + (d - 1) * (i + 1)
+            ev, prod = interpolate(start, min(start + d - 1, g.num_points),
+                                   ev, prod)
+        put(g.wires_evaluation_value(), ev)

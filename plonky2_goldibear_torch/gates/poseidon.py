@@ -141,17 +141,30 @@ class PoseidonGate(Gate):
                     state[i] = sbox_in
             state = pg.mds_layer_a(A, pg.sbox_layer_a(A, state))
             round_ctr += 1
-        state = pg.mds_partial_layer_init_a(
-            A, pg.partial_first_constant_layer_a(A, state))
-        for r in range(NP):
-            sbox_in = lw[self.wire_partial_sbox(r)]
-            constraints.append(A.sub(state[0], sbox_in))
-            state[0] = pg.sbox_monomial_a(A, sbox_in)
-            if r < NP - 1:
-                state[0] = A.add_base_const(
-                    state[0], C.FAST_PARTIAL_ROUND_CONSTANTS[r])
-            state = pg.mds_partial_layer_fast_a(A, state, r)
-        round_ctr += NP
+        if pg.mds_gate_fits(A):
+            # the circuit algebra with room for a PoseidonMdsGate runs the
+            # naive partial rounds, one MDS gate each (reference
+            # poseidon_goldilocks.rs:354-363); the lane-0 S-box inputs and
+            # the final state are the fast schedule's
+            for r in range(NP):
+                state = pg.constant_layer_a(A, state, round_ctr)
+                sbox_in = lw[self.wire_partial_sbox(r)]
+                constraints.append(A.sub(state[0], sbox_in))
+                state[0] = pg.sbox_monomial_a(A, sbox_in)
+                state = pg.mds_layer_a(A, state)
+                round_ctr += 1
+        else:
+            state = pg.mds_partial_layer_init_a(
+                A, pg.partial_first_constant_layer_a(A, state))
+            for r in range(NP):
+                sbox_in = lw[self.wire_partial_sbox(r)]
+                constraints.append(A.sub(state[0], sbox_in))
+                state[0] = pg.sbox_monomial_a(A, sbox_in)
+                if r < NP - 1:
+                    state[0] = A.add_base_const(
+                        state[0], C.FAST_PARTIAL_ROUND_CONSTANTS[r])
+                state = pg.mds_partial_layer_fast_a(A, state, r)
+            round_ctr += NP
         for r in range(HALF):
             state = pg.constant_layer_a(A, state, round_ctr)
             for i in range(W):

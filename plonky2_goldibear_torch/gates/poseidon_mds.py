@@ -1,14 +1,16 @@
 """PoseidonMdsGate, constraint side: one width-12 Poseidon MDS layer over
 extension elements, coefficient by coefficient (reference
 plonky2/src/gates/poseidon_goldilocks_mds.rs; the JAX package's
-``gates/poseidon_mds.py``).  Witness generator and quotient evaluation:
-ROADMAP Queue 1 item 4.
+``gates/poseidon_mds.py``).  The recursive verifier's in-circuit Poseidon
+rounds place it (``gates/circuit_algebra.py:poseidon_mds_layer``).
 """
 
 from __future__ import annotations
 
 from ..hash import _poseidon_gl_constants as C
-from .base import Gate, generators_not_ported
+from ..iop import generator as gen
+from ..iop import target as tgt
+from .base import Gate
 
 W = C.SPONGE_WIDTH
 
@@ -41,7 +43,8 @@ class PoseidonMdsGate(Gate):
     def num_constraints(self):
         return W * self.D
 
-    generators = generators_not_ported
+    def generators(self, row, local_constants, spec):
+        return [_MdsGenerator(self, row, spec)]
 
     def eval_unfiltered(self, A, vars):
         lw = vars.local_wires
@@ -58,3 +61,25 @@ class PoseidonMdsGate(Gate):
                                                   C.MDS_MATRIX_DIAG[r]))
                 out.append(A.sub(lw[w], acc))
         return out
+
+
+class _MdsGenerator(gen.SimpleGenerator):
+    """The 12 outputs of the MDS layer, coefficient by coefficient."""
+
+    def __init__(self, gate, row, spec):
+        self.gate, self.row, self.spec = gate, row, spec
+
+    def dependencies(self):
+        return [tgt.wire(self.row, w) for i in range(W)
+                for w in self.gate.wires_input(i)]
+
+    def run_once(self, witness, out):
+        g, p = self.gate, self.spec.p
+        inputs = [[witness.get_target(tgt.wire(self.row, w))
+                   for w in g.wires_input(i)] for i in range(W)]
+        for r in range(W):
+            for d, w in enumerate(g.wires_output(r)):
+                acc = sum(C.MDS_MATRIX_CIRC[i] * inputs[(i + r) % W][d]
+                          for i in range(W))
+                acc += C.MDS_MATRIX_DIAG[r] * inputs[r][d]
+                out.append((tgt.wire(self.row, w), acc % p))

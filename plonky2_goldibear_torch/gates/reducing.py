@@ -1,14 +1,17 @@
 """Reducing gates, constraint side: Horner folds acc' = acc * alpha + c_i
 over base or extension coefficients (reference plonky2/src/gates/
 {reducing.rs, reducing_extension.rs}; the JAX package's
-``gates/reducing.py``).  Witness generators and quotient evaluation:
-ROADMAP Queue 1 item 4.
+``gates/reducing.py``).  The recursive verifier's Horner reductions
+(``plonk/gadgets.py:ReducingFactorTarget``) place them; one generator a
+row fills the accumulators.
 """
 
 from __future__ import annotations
 
-from .base import (Gate, ext_algebra_add, ext_algebra_mul, ext_algebra_sub,
-                   generators_not_ported)
+from ..field import host
+from ..iop import generator as gen
+from ..iop import target as tgt
+from .base import Gate, ext_algebra_add, ext_algebra_mul, ext_algebra_sub
 
 
 class _Reducing(Gate):
@@ -60,7 +63,8 @@ class _Reducing(Gate):
     def num_constraints(self):
         return self.D * self.num_coeffs
 
-    generators = generators_not_ported
+    def generators(self, row, local_constants, spec):
+        return [_ReducingGenerator(self, row, spec)]
 
     def _add_coeff(self, A, term, coeff):
         raise NotImplementedError
@@ -85,6 +89,10 @@ class ReducingGate(_Reducing):
 
     name = "ReducingGate"
 
+    @staticmethod
+    def max_coeffs_len(num_wires, num_routed_wires, D):
+        return min(num_routed_wires - 3 * D, (num_wires - 2 * D) // (D + 1))
+
     def _add_coeff(self, A, term, coeff):
         term[0] = A.add(term[0], coeff[0])
         return term
@@ -96,9 +104,44 @@ class ReducingExtensionGate(_Reducing):
 
     name = "ReducingExtensionGate"
 
+    @staticmethod
+    def max_coeffs_len(num_wires, num_routed_wires, D):
+        return min((num_routed_wires - 3 * D) // D,
+                   (num_wires - 2 * D) // (2 * D))
+
     def __init__(self, num_coeffs: int, D: int):
         super().__init__(num_coeffs, D)
         self.coeff_width = D
 
     def _add_coeff(self, A, term, coeff):
         return ext_algebra_add(A, term, coeff)
+
+
+class _ReducingGenerator(gen.SimpleGenerator):
+    """acc_i = acc_(i-1) * alpha + c_i on the host, every accumulator."""
+
+    def __init__(self, gate, row, spec):
+        self.gate, self.row, self.spec = gate, row, spec
+
+    def dependencies(self):
+        g = self.gate
+        wires = list(g.wires_alpha()) + list(g.wires_old_acc())
+        for i in range(g.num_coeffs):
+            wires += list(g.wires_coeff(i))
+        return [tgt.wire(self.row, w) for w in wires]
+
+    def run_once(self, witness, out):
+        g, spec = self.gate, self.spec
+
+        def get(wires):
+            return tuple(witness.get_target(tgt.wire(self.row, w))
+                         for w in wires)
+
+        alpha, acc = get(g.wires_alpha()), get(g.wires_old_acc())
+        for i in range(g.num_coeffs):
+            c = get(g.wires_coeff(i))
+            if len(c) == 1:
+                c = host.ext_from_base(spec, c[0])
+            acc = host.ext_add(spec, host.ext_mul(spec, acc, alpha), c)
+            for w, v in zip(g.wires_accs(i), acc):
+                out.append((tgt.wire(self.row, w), v))

@@ -171,7 +171,19 @@ def mds_row_shf_a(A, r: int, v):
     return A.const_mul_add(C.MDS_MATRIX_DIAG[r], v[r], res)
 
 
+def mds_gate_fits(A) -> bool:
+    """Whether ``A`` builds a circuit whose routed wires hold a
+    PoseidonMdsGate (two extension elements a lane); the gate's in-circuit
+    MDS layers go through one then (reference poseidon_goldilocks.rs:
+    597-620)."""
+    hook = getattr(A, "poseidon_mds_layer", None)
+    return hook is not None and A.b.config.num_routed_wires >= \
+        2 * A.spec.ext_degree * WIDTH
+
+
 def mds_layer_a(A, state):
+    if mds_gate_fits(A):
+        return A.poseidon_mds_layer(state)
     return [mds_row_shf_a(A, r, state) for r in range(WIDTH)]
 
 

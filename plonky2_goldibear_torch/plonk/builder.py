@@ -1,10 +1,13 @@
 """Circuit builder (reference plonky2/src/plonk/circuit_builder.rs:144-1410,
-gadgets/arithmetic.rs:30-165; the base-field subset of the JAX package's
-``plonk/builder.py``).
+gadgets/arithmetic.rs:30-165, gadgets/arithmetic_extension.rs; the JAX
+package's ``plonk/builder.py`` without lookups, zk and the misc gates).
 
 The builder is a host frontend: targets, gates placed row by row, copy
-constraints and constants, for the gates the port has (Arithmetic,
-Constant, PublicInput, Noop, Poseidon-GL, Poseidon2-BB width 16).
+constraints and constants, base-field and extension arithmetic, for the
+gates the port has (Arithmetic, Constant, PublicInput, Noop, Poseidon-GL,
+Poseidon2-BB width 16, and the recursive verifier's: the extension
+arithmetic, reducing, random-access, base-sum, coset-interpolation and
+Poseidon MDS gates, placed by ``plonk/gadgets.py``).
 ``build`` lays out the selectors, constants and sigmas, commits the
 constants/sigmas on the device with the port's ``PolynomialBatch`` (the
 NTT, leaf-sponge and Merkle kernels on the card), collects the witness
@@ -26,6 +29,7 @@ from ..fri.oracle import PolynomialBatch
 from ..gates import selectors as selectors_mod
 from ..gates.basic_gates import (ArithmeticGate, ConstantGate, NoopGate,
                                  PublicInputGate)
+from ..gates.extension_gates import ArithmeticExtensionGate, MulExtensionGate
 from ..gates.poseidon import PoseidonGate
 from ..gates.poseidon2_bb_gate import Poseidon2BabyBearGate
 from ..iop import generator as gen
@@ -44,9 +48,27 @@ class GateInstance:
     constants: List[int]
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+class _ExtInverseGenerator(gen.SimpleGenerator):
+    """1 / a for the division gadgets (reference
+    gadgets/arithmetic_extension.rs QuotientGeneratorExtension)."""
+
+    def __init__(self, a, inv_targets, spec):
+        self.a = a
+        self.inv_targets = inv_targets
+        self.spec = spec
+
+    def dependencies(self):
+        return list(self.a)
+
+    def run_once(self, witness, out):
+        inv = host.ext_inv(self.spec,
+                           tuple(witness.get_target(t) for t in self.a))
+        out.extend(zip(self.inv_targets, inv))
 
 
 class CircuitBuilder:
@@ -58,7 +80,7 @@ class CircuitBuilder:
         self._check_hasher(hasher)
         # the circuit digest's domain separator (circuit_builder.rs:1301)
         self.domain_separator: List[int] = []
-        # cyclic recursion's goal (circuit_builder.rs:1332): item 4
+        # cyclic recursion's goal (circuit_builder.rs:1332): item 4b
         self.goal_common_data = None
         self.gate_instances: List[GateInstance] = []
         self.gates: Dict[str, object] = {}
@@ -74,6 +96,7 @@ class CircuitBuilder:
         self.current_slots: Dict[str, Dict[Tuple, Tuple[int, int]]] = {}
         self._slot_gates: Dict[str, object] = {}
         self.base_arithmetic_results: Dict[Tuple, tgt.Target] = {}
+        self.ext_arithmetic_results: Dict[Tuple, Tuple] = {}
         self.context_tree = ContextTree()
 
     def _check_hasher(self, hasher):
@@ -287,23 +310,233 @@ class CircuitBuilder:
         return self.mul(x, x)
 
     def cube(self, x):
-        # the reference's mul_many([x, x, x]): one() * x * x * x
-        out = self.one()
-        for _ in range(3):
-            out = self.mul(out, x)
-        return out
+        return self.mul_many([x, x, x])
+
+    # exactly this many addends go to one AddManyGate op (arithmetic.rs:23)
+    ADD_MANY_THRESHOLD = 23
 
     def add_many(self, xs):
-        raise _not_ported("add_many (AddManyGate, the misc gates)", 4)
+        """The sum of ``xs``: a chain of ``add`` below the threshold
+        (arithmetic.rs:215-238); at or above it the reference packs
+        AddManyGate ops, not ported (ROADMAP Queue 1 item 4b)."""
+        addends = list(xs)
+        if len(addends) >= self.ADD_MANY_THRESHOLD:
+            raise _not_ported("add_many of 23 or more (AddManyGate)", "4b")
+        out = self.zero()
+        for x in addends:
+            out = self.add(out, x)
+        return out
 
     def mul_many(self, xs):
-        raise _not_ported("mul_many (with the misc gates)", 4)
+        out = self.one()
+        for x in xs:
+            out = self.mul(out, x)
+        return out
 
     def assert_zero(self, x):
         self.connect(x, self.zero())
 
     def assert_one(self, x):
         self.connect(x, self.one())
+
+    # -- extension arithmetic (gadgets/arithmetic_extension.rs,
+    #    iop/ext_target.rs): an extension target is a tuple of D targets ----
+
+    @property
+    def D(self) -> int:
+        return self.spec.ext_degree
+
+    def add_virtual_extension_target(self) -> Tuple[tgt.Target, ...]:
+        return tuple(self.add_virtual_target() for _ in range(self.D))
+
+    def add_virtual_extension_targets(self, n: int):
+        return [self.add_virtual_extension_target() for _ in range(n)]
+
+    def constant_extension(self, coeffs) -> Tuple[tgt.Target, ...]:
+        if isinstance(coeffs, int):
+            coeffs = (coeffs,) + (0,) * (self.D - 1)
+        assert len(coeffs) == self.D
+        return tuple(self.constant(c) for c in coeffs)
+
+    def zero_extension(self):
+        return self.constant_extension(0)
+
+    def one_extension(self):
+        return self.constant_extension(1)
+
+    def convert_to_ext(self, t: tgt.Target) -> Tuple[tgt.Target, ...]:
+        return (t,) + (self.zero(),) * (self.D - 1)
+
+    def connect_extension(self, a, b):
+        for x, y in zip(a, b):
+            self.connect(x, y)
+
+    def target_as_constant_ext(self, a) -> Optional[Tuple[int, ...]]:
+        cs = tuple(self.target_as_constant(t) for t in a)
+        return None if any(c is None for c in cs) else cs
+
+    def arithmetic_extension(self, const_0: int, const_1: int, m0, m1,
+                             addend) -> Tuple[tgt.Target, ...]:
+        """const_0 * m0 * m1 + const_1 * addend over the extension
+        (arithmetic_extension.rs:27-115): the special cases first, then a
+        cache of whole operations, then an op of a MulExtensionGate row when
+        the addend is the zero constant, else of an ArithmeticExtensionGate
+        row with these constants."""
+        p = self.spec.p
+        const_0 %= p
+        const_1 %= p
+        special = self._arithmetic_extension_special_cases(
+            const_0, const_1, m0, m1, addend)
+        if special is not None:
+            return special
+        op = (const_0, const_1, m0, m1, addend)
+        if op in self.ext_arithmetic_results:
+            return self.ext_arithmetic_results[op]
+        if self.target_as_constant_ext(addend) == (0,) * self.D:
+            gate = MulExtensionGate.from_config(self.config, self.D)
+            row, i = self.find_slot(gate, [const_0], [const_0])
+            inputs = (m0, m1)
+        else:
+            gate = ArithmeticExtensionGate.from_config(self.config, self.D)
+            row, i = self.find_slot(gate, [const_0, const_1],
+                                    [const_0, const_1])
+            inputs = (m0, m1, addend)
+        wires = gate.wires_op(i)
+        for ts, ws in zip(inputs, wires):
+            for t, w in zip(ts, ws):
+                self.connect(t, tgt.wire(row, w))
+        result = tuple(tgt.wire(row, w) for w in wires[-1])
+        self.ext_arithmetic_results[op] = result
+        return result
+
+    def _arithmetic_extension_special_cases(self, const_0, const_1, m0, m1,
+                                            addend):
+        """arithmetic_extension.rs:117-171."""
+        spec = self.spec
+        zero = self.zero_extension()
+        mc0 = self.target_as_constant_ext(m0)
+        mc1 = self.target_as_constant_ext(m1)
+        ac = self.target_as_constant_ext(addend)
+        first_zero = const_0 == 0 or m0 == zero or m1 == zero
+        second_zero = const_1 == 0 or addend == zero
+        zero_v = (0,) * self.D
+        first_const = zero_v if first_zero else (
+            host.ext_scalar_mul(spec, host.ext_mul(spec, mc0, mc1), const_0)
+            if mc0 is not None and mc1 is not None else None)
+        second_const = zero_v if second_zero else (
+            host.ext_scalar_mul(spec, ac, const_1) if ac is not None
+            else None)
+        if first_const is not None and second_const is not None:
+            return self.constant_extension(
+                host.ext_add(spec, first_const, second_const))
+        if first_zero and const_1 == 1:
+            return addend
+        if second_zero:
+            one_v = host.ext_one(spec)
+            if mc0 is not None and \
+                    host.ext_scalar_mul(spec, mc0, const_0) == one_v:
+                return m1
+            if mc1 is not None and \
+                    host.ext_scalar_mul(spec, mc1, const_0) == one_v:
+                return m0
+        return None
+
+    def mul_extension_with_const(self, const_0: int, m0, m1):
+        return self.arithmetic_extension(const_0, 0, m0, m1,
+                                         self.zero_extension())
+
+    def add_extension(self, a, b):
+        # 1 * one * a + 1 * b: the multiplicands are (one, a)
+        # (arithmetic_extension.rs:199-206), and the wiring is in the digest
+        return self.arithmetic_extension(1, 1, self.one_extension(), a, b)
+
+    def sub_extension(self, a, b):
+        return self.arithmetic_extension(1, self.spec.p - 1,
+                                         self.one_extension(), a, b)
+
+    def mul_extension(self, a, b):
+        return self.mul_extension_with_const(1, a, b)
+
+    def square_extension(self, a):
+        return self.mul_extension(a, a)
+
+    def cube_extension(self, a):
+        return self.mul_many_extension([a, a, a])
+
+    def mul_add_extension(self, a, b, c):
+        return self.arithmetic_extension(1, 1, a, b, c)
+
+    def mul_sub_extension(self, a, b, c):
+        return self.arithmetic_extension(1, self.spec.p - 1, a, b, c)
+
+    def mul_const_extension(self, c: int, a):
+        # routes a constant target (arithmetic_extension.rs:350-353)
+        return self.mul_extension(self.constant_extension(c), a)
+
+    def mul_const_add_extension(self, c: int, a, b):
+        return self.mul_add_extension(self.constant_extension(c), a, b)
+
+    def add_const_extension(self, a, c: int):
+        return self.add_extension(a, self.constant_extension(c))
+
+    def scalar_mul_ext(self, s: tgt.Target, a):
+        """A base target times an extension target."""
+        return self.mul_extension(self.convert_to_ext(s), a)
+
+    def scalar_mul_add_extension(self, s: tgt.Target, b, c):
+        return self.arithmetic_extension(1, 1, self.convert_to_ext(s), b, c)
+
+    def scalar_mul_sub_extension(self, s: tgt.Target, b, c):
+        return self.arithmetic_extension(1, self.spec.p - 1,
+                                         self.convert_to_ext(s), b, c)
+
+    def add_many_extension(self, terms):
+        acc = self.zero_extension()
+        for t in terms:
+            acc = self.add_extension(acc, t)
+        return acc
+
+    def mul_many_extension(self, terms):
+        acc = self.one_extension()
+        for t in terms:
+            acc = self.mul_extension(acc, t)
+        return acc
+
+    def exp_u64_extension(self, base, exponent: int):
+        """base^e for an exponent known on the host
+        (arithmetic_extension.rs:442-467: the small exponents, then square
+        and multiply from the least significant bit)."""
+        if exponent == 0:
+            return self.one_extension()
+        if exponent == 1:
+            return base
+        if exponent == 2:
+            return self.square_extension(base)
+        if exponent == 3:
+            return self.cube_extension(base)
+        result = self.one_extension()
+        while exponent:
+            if exponent & 1:
+                result = self.mul_extension(result, base)
+            exponent >>= 1
+            if exponent:
+                base = self.square_extension(base)
+        return result
+
+    def div_add_extension(self, x, y, z):
+        """x / y + z: a witnessed inverse of y, the check y * inv = 1, then
+        one mul_add (arithmetic_extension.rs:479-498)."""
+        inv = self.add_virtual_extension_target()
+        self.add_simple_generator(_ExtInverseGenerator(y, inv, self.spec))
+        self.connect_extension(self.mul_extension(y, inv),
+                               self.one_extension())
+        return self.mul_add_extension(x, inv, z)
+
+    def div_extension(self, a, b):
+        return self.div_add_extension(a, b, self.zero_extension())
+
+    def inverse_extension(self, a):
+        return self.div_extension(self.one_extension(), a)
 
     # -- lookups (gadgets/lookup.rs:54-160): item 5 --------------------------
 
@@ -386,7 +619,7 @@ class CircuitBuilder:
         if config.zero_knowledge:
             raise _not_ported("zero knowledge (blinding rows and salts)", 5)
         if self.goal_common_data is not None:
-            raise _not_ported("cyclic recursion (goal_common_data)", 4)
+            raise _not_ported("cyclic recursion (goal_common_data)", "4b")
         spec = self.spec
         p = spec.p
         rate_bits = config.fri_config.rate_bits
@@ -548,28 +781,3 @@ class CircuitBuilder:
         wp = forest.wire_partition()
         return (wp.get_sigma_polys(host.log2_strict(degree), k_is, subgroup,
                                    self.spec.p), forest)
-
-
-# extension arithmetic (gadgets/arithmetic_extension.rs, iop/ext_target.rs)
-_EXTENSION_OPS = (
-    "add_virtual_extension_target", "add_virtual_extension_targets",
-    "constant_extension", "zero_extension", "one_extension",
-    "convert_to_ext", "connect_extension", "target_as_constant_ext",
-    "arithmetic_extension", "mul_extension_with_const", "add_extension",
-    "sub_extension", "mul_extension", "square_extension", "cube_extension",
-    "mul_add_extension", "mul_sub_extension", "mul_const_extension",
-    "mul_const_add_extension", "add_const_extension", "scalar_mul_ext",
-    "scalar_mul_add_extension", "scalar_mul_sub_extension",
-    "add_many_extension", "mul_many_extension", "exp_u64_extension",
-    "div_add_extension", "div_extension", "inverse_extension")
-
-
-def _extension_op(name):
-    def op(self, *args, **kwargs):
-        raise _not_ported(f"extension arithmetic ({name})", 4)
-    op.__name__ = name
-    return op
-
-
-for _name in _EXTENSION_OPS:
-    setattr(CircuitBuilder, _name, _extension_op(_name))

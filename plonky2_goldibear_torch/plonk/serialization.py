@@ -12,7 +12,7 @@ BabyBear: 8 u32).
 
 Not read yet, each raising ``NotImplementedError`` with its ROADMAP
 Queue 1 item: the gates of tags 5 and 17-19 (Exponentiation, AddMany,
-ApplyMat4, Poseidon2InternalPermutation; items 4 and 6), the lookup gates
+ApplyMat4, Poseidon2InternalPermutation; items 4b and 6), the lookup gates
 6-7 and lookup tables (item 5), byte digests (the Keccak config, item 7).
 The writers are item 11.
 """
@@ -39,7 +39,7 @@ from .proof import (FriInitialTreeProof, FriProof, FriQueryRound,
                     FriQueryStep, OpeningSet, Proof, ProofWithPublicInputs)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
@@ -176,8 +176,8 @@ def read_selectors_info(buf: Buffer) -> SelectorsInfo:
 # -- gates (the DefaultGateSerializer's tags, reference
 #    gate_serialization.rs:143-166) ------------------------------------------
 
-_UNPORTED_TAGS = {5: ("ExponentiationGate", 4), 6: ("LookupGate", 5),
-                  7: ("LookupTableGate", 5), 17: ("AddManyGate", 4),
+_UNPORTED_TAGS = {5: ("ExponentiationGate", "4b"), 6: ("LookupGate", 5),
+                  7: ("LookupTableGate", 5), 17: ("AddManyGate", "4b"),
                   18: ("ApplyMat4Gate", 6),
                   19: ("Poseidon2InternalPermutationGate", 6)}
 

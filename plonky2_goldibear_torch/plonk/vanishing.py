@@ -9,12 +9,14 @@ exact, so the stacked order gives the JAX package's values bit for bit.
 The challenges are scalar tensors of the field module ``F`` (``gl`` or
 ``bb``).
 
-The verifier evaluates the same polynomial at one point zeta on the host:
-the ``*_a`` functions and ``eval_l_0_host`` work over an algebra ``A``
-(``gates/base.py``: ``HostExtAlgebra`` at zeta), each gate through its
-``eval_unfiltered``, with the challenges as python ints (the JAX
-package's ``plonk/vanishing.py``, generic form).  No lookup terms: lookup
-circuits are not ported yet.
+The verifier evaluates the same polynomial at one point zeta: the ``*_a``
+functions work over an algebra ``A`` (``gates/base.py``), each gate
+through its ``eval_unfiltered`` (the JAX package's ``plonk/vanishing.py``,
+generic form).  ``HostExtAlgebra`` evaluates it on the host with the
+challenges as python ints (``plonk/verifier.py``, with
+``eval_l_0_host``); ``CircuitExtAlgebra`` builds the same evaluation into
+a circuit, the challenges as targets (``recursion/recursive_verifier.py``).
+No lookup terms: lookup circuits are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +26,28 @@ from typing import List, Sequence
 import torch
 
 from ..field import host
-from ..gates.base import EvaluationVars, compute_filter, eval_filtered
+from ..gates.base import (DeviceBaseAlgebra, EvaluationVars, compute_filter,
+                          eval_filtered)
+
+
+def gate_constraints_device(F, gate, wires: torch.Tensor,
+                            constants: torch.Tensor, pi_hash: List
+                            ) -> torch.Tensor:
+    """(num_constraints, m): ``gate``'s unfiltered constraints at every
+    point, ``wires`` (num_wires, m), ``constants`` the gate's (k, m).  A
+    gate with a stacked form (Poseidon, Poseidon2-BB) runs it; every other
+    gate runs its ``eval_unfiltered`` over ``DeviceBaseAlgebra``, one
+    whole-domain op per algebra op."""
+    stacked = getattr(gate, "eval_unfiltered_device", None)
+    if stacked is not None:
+        return stacked(F, wires, constants, pi_hash)
+    m = wires.shape[-1]
+    vals = gate.eval_unfiltered(
+        DeviceBaseAlgebra(F, wires.device),
+        EvaluationVars(constants.unbind(0), wires.unbind(0), pi_hash))
+    if not vals:
+        return F.zeros((0, m), wires.device)
+    return torch.stack([v.expand(m) for v in vals])
 
 
 def evaluate_gate_constraints(F, common, wires: torch.Tensor,
@@ -34,6 +57,7 @@ def evaluate_gate_constraints(F, common, wires: torch.Tensor,
     gates of filter * constraint (reference vanishing_poly.rs:703-738)."""
     si = common.selectors_info
     ns = si.num_selectors
+    gate_constants = constants[ns + common.num_lookup_selectors:]
     acc = F.zeros((common.num_gate_constraints, m), wires.device)
     for i, gate in enumerate(common.gates):
         k = gate.num_constraints()
@@ -41,7 +65,8 @@ def evaluate_gate_constraints(F, common, wires: torch.Tensor,
             continue
         sel = si.selector_indices[i]
         filt = compute_filter(i, si.groups[sel], constants[sel], ns > 1, F)
-        vals = gate.eval_unfiltered_device(F, wires, constants[ns:], pi_hash)
+        vals = gate_constraints_device(F, gate, wires, gate_constants,
+                                       pi_hash)
         acc[:k] = F.add(acc[:k], F.mul(vals, filt))
     return acc
 
@@ -145,15 +170,6 @@ def check_partial_products_a(A, numerators: Sequence,
     return out
 
 
-def reduce_with_powers_a(A, terms: Sequence, alpha) -> object:
-    """sum_i alpha^i terms[i], alpha a base-field scalar, by Horner
-    (reference plonk_common.rs:122-135)."""
-    cumul = A.zero()
-    for term in reversed(list(terms)):
-        cumul = A.add(A.mul_scalar(cumul, alpha), term)
-    return cumul
-
-
 def eval_vanishing_poly_a(A, common, x, l_0_x, vars: EvaluationVars,
                           local_zs: Sequence, next_zs: Sequence,
                           partial_products: Sequence, s_sigmas: Sequence,
@@ -161,11 +177,15 @@ def eval_vanishing_poly_a(A, common, x, l_0_x, vars: EvaluationVars,
                           alphas: Sequence[int]) -> List:
     """One combined value per alpha (reference vanishing_poly.rs:57-180),
     the terms in ``eval_vanishing_poly``'s order: the z(1) terms, the
-    partial-product checks, the gate constraints."""
+    partial-product checks, the gate constraints.  ``l_0_x`` may be a
+    function, called after the gate constraints: the circuit algebra then
+    emits its gates where the reference does (vanishing_poly.rs:902)."""
     max_degree = common.quotient_degree_factor
     num_prods = common.num_partial_products
     num_routed = common.config.num_routed_wires
     constraint_terms = evaluate_gate_constraints_a(A, common, vars)
+    if callable(l_0_x):
+        l_0_x = l_0_x()
     s_ids = [A.k_const_mul(common.k_is[j], x) for j in range(num_routed)]
     z_1_terms, pp_terms = [], []
     for i in range(common.config.num_challenges):
@@ -183,7 +203,7 @@ def eval_vanishing_poly_a(A, common, x, l_0_x, vars: EvaluationVars,
             partial_products[i * num_prods:(i + 1) * num_prods],
             z_x, z_gx, max_degree)
     terms = z_1_terms + pp_terms + constraint_terms
-    return [reduce_with_powers_a(A, terms, alphas[i])
+    return [A.reduce_with_powers(terms, alphas[i])
             for i in range(common.config.num_challenges)]
 
 

@@ -6,9 +6,10 @@ against the JAX package's, on the CPU, exact (no tolerance).
     random ``EvaluationVars`` at an extension point, over Goldilocks, and
     over BabyBear (D = 4) where the gate is generic: the port's
     ``HostExtAlgebra`` result equals the JAX package's.
-(b) The six gates that also have a stacked form: ``HostBaseAlgebra`` at
-    one base-field point equals ``eval_unfiltered_device`` on CPU tensors
-    at that point.
+(b) The prover's evaluation of Arithmetic, Constant, PublicInput, Noop
+    (through ``DeviceBaseAlgebra``) and of the two Poseidon gates (their
+    stacked forms), ``vanishing.gate_constraints_device`` on CPU tensors
+    at one base-field point, equals ``HostBaseAlgebra`` at that point.
 (c) The algebra forms of the hashers against their host permutations, and
     the host Merkle check against a tree the port built.
 """
@@ -30,6 +31,7 @@ from plonky2_goldibear_torch.field import bb, gl, host  # noqa: E402
 from plonky2_goldibear_torch.gates import gate_from_id  # noqa: E402
 from plonky2_goldibear_torch.gates.base import (  # noqa: E402
     EvaluationVars, HostBaseAlgebra, HostExtAlgebra)
+from plonky2_goldibear_torch.plonk import vanishing  # noqa: E402
 
 torch.set_num_threads(1)
 SPECS = {"goldilocks": host.GOLDILOCKS, "babybear": host.BABYBEAR}
@@ -121,7 +123,7 @@ def test_every_gate_of_the_reference_circuit_is_covered():
     assert len(kinds) == 14, kinds
 
 
-# the gates with a stacked form: (field, index in ``_jax_gates``)
+# the chains' gates: (field, index in ``_jax_gates``)
 DEVICE_CASES = [("goldilocks", i) for i in (0, 1, 2, 3, 12)] + \
     [("babybear", i) for i in (0, 1, 2, 3, 11)]
 
@@ -146,8 +148,8 @@ def test_host_and_device_forms_agree(field, index):
         return F.from_ints(np.asarray(vals, dtype=np.uint64).reshape(-1, 1),
                            "cpu")
 
-    dev = gate.eval_unfiltered_device(
-        F, column(wires), column(consts),
+    dev = vanishing.gate_constraints_device(
+        F, gate, column(wires), column(consts),
         list(F.from_ints(pi_hash, "cpu").unbind(0)))
     want = [int(v) for v in F.to_ints(dev)[:, 0]]
     assert len(got) == gate.num_constraints()
