@@ -74,6 +74,36 @@
    version at every shape the outer's build and prove launch it on.  It
    runs before phase 5, which verifies (and times) its proof too.
 
+7. zero knowledge and lookups, before phase 5 too:
+   - the CPU tests' circuits built and proved on the card from
+     ``NonRandomRng(1)``, each against its JAX fixture (metadata, cap,
+     every proof phase, the counter after the proof): the zk Fibonacci
+     circuit at one FRI query round (``data/zk_fib_1q.npz``, 2^8), the
+     Tip5-16 and two-table lookup circuits (``data/lookup_tip5.npz``,
+     ``lookup_two_tables.npz``); each verifies, a tampered output does not;
+   - A, the reference's regression recursion, zk, 2^14: the inner
+     (``circuits.regression_inner``) built (its cap and digest against the
+     JAX build) and proved; the recursive verifier over it built (its
+     common data against the port's reading of
+     ``tests/data/gl_regression_common.bin`` field by field, its cap and
+     digest against the JAX build), witnessed and proved warm
+     ``ZK_PROVE_REPS`` times (phases, every kernel's launches over one
+     prove, a profiled prove); two proofs (the warm-up's and a timed
+     one's, each from a fresh rng) differ in their wires cap and both
+     verify, a tampered copy does not;
+   - B, one u16 table of all 2^16 inputs and 4500 lookups
+     (``circuits.u16_table``, 2^12 rows): built (common data, cap and digest
+     against the JAX build), the lookup polys on the card against the
+     scalar host reference and profiled alone (launches, device ms),
+     proved 3 times (``lookup_polys`` its own phase), verified, a
+     tampered output rejected;
+   - C, the recursive verifier over the Tip5-16 proof: built and witnessed
+     (common data, cap, digest and a SHA-256 of every wire column against
+     the JAX build and witness), proved and verified;
+   - then every kernel at each new shape A's and B's builds and proves
+     launched (the 2^17-row LDEs, the salted 139 / 24 / 20-wide sponges,
+     the 2^17-leaf trees), against its plain version with its bounds.
+
 Between 3 and 4, the probe phase: each dependent-chain probe kernel
 (``ops/probes.py``: GL multiply, squaring, two x^7 S-boxes, u32 multiply,
 multiply-and-mask, add, f32 FMA) is held against its plain version at a
@@ -126,6 +156,11 @@ RUST_PROOF = "tests/data/gl_regression_{}.bin"   # the reference's 2^14 proof
 SMALL_BITS = 6                # a second fixture: small trees, mostly tail
 # the JAX build of the recursive verifier over the GL 2^12 chain
 OUTER_BIN = "plonky2_goldibear_torch/data/recursive_gl_2e12inner_{}.bin"
+# phase 7: the JAX builds and fixtures of the zk and lookup circuits
+DATA = "plonky2_goldibear_torch/data/{}"
+# timed proves of the 2^14 zk outer: one, since the run with three took
+# over twice the command time of the script without phase 7
+ZK_PROVE_REPS = 1
 
 # Merkle trees checked besides the prove's: FRI layers to a cap of 16 and
 # a tree to its root (one subtree for the tail)
@@ -202,12 +237,13 @@ def _smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
-def _timed(fn, reps: int):
-    """(the last output of fn, ms per call of fn over reps calls after a
-    warm-up one)."""
+def _timed(fn, reps: int, warm_up: bool = True):
+    """(the last output of fn, ms per call of fn over reps calls, after a
+    warm-up one unless the caller has made it)."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -219,8 +255,8 @@ def _timed(fn, reps: int):
     return out, start.elapsed_time(end) / reps
 
 
-def _cuda_ms(fn, reps: int) -> float:
-    return _timed(fn, reps)[1]
+def _cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
+    return _timed(fn, reps, warm_up)[1]
 
 
 def _compare(a, b):
@@ -290,6 +326,365 @@ def _profile(fn, wall_ms_unprofiled: float):
             "kernels": [{"name": k, "launches": n, "ms": ms}
                         for k, (n, ms) in sorted(per.items(),
                                                  key=lambda kv: -kv[1][1])]}
+
+
+def _read_bin(name: str) -> bytes:
+    with open(os.path.join(ROOT, DATA.format(name)), "rb") as f:
+        return f.read()
+
+
+def _common_equal(common, want) -> dict:
+    """Field by field, whether built common data equals ``want``."""
+    return {
+        "config": common.config == want.config,
+        "fri_params": common.fri_params == want.fri_params,
+        "gates": [g.id() for g in common.gates]
+        == [g.id() for g in want.gates],
+        "selectors": common.selectors_info.selector_indices
+        == want.selectors_info.selector_indices
+        and [tuple(g) for g in common.selectors_info.groups]
+        == [tuple(g) for g in want.selectors_info.groups],
+        "counts": all(getattr(common, k) == getattr(want, k) for k in (
+            "quotient_degree_factor", "num_gate_constraints",
+            "num_constants", "num_public_inputs", "k_is",
+            "num_partial_products", "num_lookup_polys",
+            "num_lookup_selectors", "luts")),
+    }
+
+
+def _timed_proves(prove, reps, label, failures, counters):
+    """``reps`` warm proves by ``prove(timings)`` (the caller has made one),
+    each timed, every kernel's launches counted over the last; the profile
+    of one more.  Returns (proofs, times, median phases, launches,
+    profile)."""
+    import torch
+
+    from plonky2_goldibear_torch import ops
+
+    proofs, times, phases = [], [], []
+    for _ in range(reps):
+        ops.reset_launches()
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proofs.append(prove(timings))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        phases.append(timings)
+        launches = ops.launch_counts()
+    median_phases = {k: statistics.median(p[k] for p in phases)
+                     for k in phases[0]}
+    print(f"{label} prove on cuda: median {statistics.median(times):.4f} s "
+          f"of {[round(t, 4) for t in times]}")
+    print(f"{label} phases (s, median of {reps}): " + json.dumps(
+        {k: round(v, 4) for k, v in median_phases.items()}))
+    print(f"{label} launches in one prove: " + json.dumps(
+        {k: v for k, v in launches.items() if v}))
+    failures.extend(f"kernel {k} was not launched by the {label} prove"
+                    for k in counters if launches.get(k, 0) <= 0)
+    prof = _profile(lambda: prove({}), statistics.median(times) * 1e3)
+    print(f"{label} profile of one prove: device {prof['device_ms']:.2f} "
+          f"ms in {sum(k['launches'] for k in prof['kernels'])} launches; "
+          f"busy share {prof['device_busy_share']:.4f} of the median "
+          f"unprofiled prove ({prof['wall_ms']:.2f} ms)")
+    for k in prof["kernels"][:PROFILE_TOP]:
+        print(f"  {k['ms']:10.4f} ms {k['launches']:6d} x {k['name'][:110]}")
+    return proofs, times, median_phases, launches, prof
+
+
+def _built(make, config, label, calls, timings=None):
+    """(data, inputs, gadgets s, build s, launches): the circuit of ``make``
+    built on the card, the kernel calls of the build in ``calls[label]``
+    and its launches counted (the counts set to 0 just before it)."""
+    import torch
+
+    from plonky2_goldibear_torch import ops
+    from plonky2_goldibear_torch.plonk.builder import CircuitBuilder
+
+    b = CircuitBuilder(config)
+    t0 = time.perf_counter()
+    inputs = make(b)
+    gadgets_s = time.perf_counter() - t0
+    ops.reset_launches()
+    ops.calls = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        data = b.build(device="cuda", timings=timings)
+        torch.cuda.synchronize()
+    finally:
+        calls[label], ops.calls = ops.calls, None
+    build_s = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"{label}: 2^{data.common.degree_bits} rows, gadgets "
+          f"{gadgets_s:.4f} s, build {build_s:.4f} s "
+          + (json.dumps({k: round(v, 4) for k, v in timings.items()})
+             if timings else "") + ", launches " + json.dumps(launches))
+    return data, inputs, gadgets_s, build_s, launches
+
+
+def phase_zk_lookups(report, failures, calls, made) -> None:
+    """Phase 7 (see the module docstring): zero knowledge and lookups.
+    ``calls`` gets the kernel calls of each build and prove of paths A and
+    B, ``made`` each (label, proof, verifier data, common data) for phase
+    5."""
+    import copy
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from plonky2_goldibear_torch import circuits, ops
+    from plonky2_goldibear_torch.field import gl
+    from plonky2_goldibear_torch.gates.basic_gates import NoopGate
+    from plonky2_goldibear_torch.gates.poseidon import PoseidonGate
+    from plonky2_goldibear_torch.iop.generator import NonRandomRng
+    from plonky2_goldibear_torch.iop.witness import PartialWitness
+    from plonky2_goldibear_torch.plonk import prover
+    from plonky2_goldibear_torch.plonk import serialization as ser
+    from plonky2_goldibear_torch.plonk.circuit_data import (circuit_meta,
+                                                            read_fixture)
+    from plonky2_goldibear_torch.plonk.config import CircuitConfig
+    from plonky2_goldibear_torch.plonk.proof import flatten_proof
+    from plonky2_goldibear_torch.plonk.verifier import VerificationError
+    from plonky2_goldibear_torch.recursion import recursive_verifier as rv
+
+    gl_kernels = ("ntt", "permute", "leaf_sponge", "merkle_levels")
+    rec = report.setdefault("zk_lookups", {})
+
+    def expect(label, ok):
+        print(f"{label}: " + json.dumps(ok))
+        rec.setdefault("equal", {})[label] = ok
+        failures.extend(f"{label}: {k} differs" for k, v in ok.items()
+                        if not v)
+
+    def rejects(data, proof, label, tamper):
+        bad = copy.deepcopy(proof)
+        tamper(bad)
+        try:
+            data.verify(bad)
+            failures.append(f"{label}: a tampered copy was accepted")
+        except VerificationError:
+            print(f"{label}: verified; tampered copy rejected")
+
+    def bump_output(pr):
+        pr.public_inputs[-1] = (pr.public_inputs[-1] + 1) % gl.P
+
+    def bump_wire(pr):
+        w = pr.proof.openings.wires
+        w[7] = ((w[7][0] + 1) % gl.P,) + tuple(w[7][1:])
+
+    # -- A: the regression recursion, zk, 2^14 ---------------------------
+    zk = CircuitConfig.standard_recursion_zk_config_gl()
+    std = CircuitConfig.standard_recursion_config_gl()
+    inner, _, _, inner_build_s, _ = _built(
+        lambda b: circuits.regression_inner(b, NoopGate(), PoseidonGate()),
+        zk, "zk_inner_build", calls, {})
+    expect("zk regression inner built vs the JAX build", {
+        "degree_bits": inner.common.degree_bits == 14,
+        "constants_sigmas_cap_and_digest": inner.verifier_only
+        == ser.read_verifier_only_circuit_data(
+            _read_bin("zk_regression_inner_verifier.bin"))})
+    ops.calls = []
+    try:
+        t0 = time.perf_counter()
+        inner_proof = inner.prove(PartialWitness(),
+                                  rng=np.random.default_rng(1))
+        torch.cuda.synchronize()
+        inner_prove_s = time.perf_counter() - t0
+    finally:
+        calls["zk_inner_prove"], ops.calls = ops.calls, None
+    inner.verify(inner_proof)
+    print(f"zk regression inner: whole data.prove {inner_prove_s:.4f} s; "
+          "verified")
+    made.append(("zk_inner_2e14", inner_proof, inner.verifier_only,
+                 inner.common))
+
+    build_phases = {}
+    holder = {}
+
+    def regression_outer(b):
+        holder["t"] = circuits.recursive_verifier(b, inner.common,
+                                                  public_inputs=False)
+
+    outer, _, gadgets_s, build_s, build_launches = _built(
+        regression_outer, zk, "zk_outer_build", calls, build_phases)
+    proof_t, vk_t = holder["t"]
+    want = ser.read_common_circuit_data(open(os.path.join(
+        ROOT, RUST_PROOF.format("common")), "rb").read())
+    ok = _common_equal(outer.common, want)
+    ok["degree_bits"] = outer.common.degree_bits == want.degree_bits == 14
+    ok["constants_sigmas_cap_and_digest"] = outer.verifier_only == \
+        ser.read_verifier_only_circuit_data(
+            _read_bin("zk_regression_outer_verifier.bin"))
+    expect("zk regression outer built vs the reference's common data and "
+           "the JAX cap and digest", ok)
+    pw = PartialWitness()
+    rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
+    rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
+    t0 = time.perf_counter()
+    circuit = outer.circuit(pw, np.random.default_rng(2))
+    torch.cuda.synchronize()
+    witgen_s = time.perf_counter() - t0
+    print(f"zk regression outer: gadgets {gadgets_s:.4f} s, build "
+          f"{build_s:.4f} s, witgen {witgen_s:.4f} s")
+    ops.calls = []
+    try:
+        first = prover.prove(circuit, device="cuda")    # also the warm-up
+    finally:
+        calls["zk_outer_prove"], ops.calls = ops.calls, None
+    proofs, times, phases, launches, prof = _timed_proves(
+        lambda t: prover.prove(circuit, device="cuda", timings=t),
+        ZK_PROVE_REPS, "zk regression outer 2^14", failures, gl_kernels)
+    proofs = [first] + proofs
+    for i, pr in enumerate(proofs[:2]):
+        outer.verify(pr)
+        made.append((f"zk_outer_2e14_{i}", pr, outer.verifier_only,
+                     outer.common))
+    if len(proofs) > 1 and \
+            proofs[0].proof.wires_cap == proofs[1].proof.wires_cap:
+        failures.append("zk outer: two proofs from two rngs have one "
+                        "wires cap")
+    else:
+        print("zk outer: two proofs from two rngs differ in their wires "
+              "cap; both verify")
+    rejects(outer, proofs[0], "zk outer 2^14", bump_wire)
+    rec["zk_outer"] = dict(
+        inner_build_s=inner_build_s, inner_prove_s=inner_prove_s,
+        gadgets_s=gadgets_s, build_s=build_s, build_phases=build_phases,
+        build_launches=build_launches, witgen_s=witgen_s, prove_s=times,
+        phases=phases, launches=launches, profile=prof)
+
+    # -- B: the 2^16-entry table, 2^12 rows -------------------------------
+    u16, ins, gadgets_s, build_s, build_launches = _built(
+        circuits.u16_table, std, "u16_build", calls, {})
+    ok = _common_equal(u16.common, ser.read_common_circuit_data(
+        _read_bin("lookup_u16_common.bin")))
+    ok["degree_bits"] = u16.common.degree_bits == 12
+    ok["constants_sigmas_cap_and_digest"] = u16.verifier_only == \
+        ser.read_verifier_only_circuit_data(_read_bin(
+            "lookup_u16_verifier.bin"))
+    expect("u16 table 2^12 built vs the JAX build", ok)
+    pw = PartialWitness()
+    pw.set_targets(ins, circuits.u16_inputs())
+    t0 = time.perf_counter()
+    circuit = u16.circuit(pw, np.random.default_rng(3))
+    torch.cuda.synchronize()
+    witgen_s = time.perf_counter() - t0
+    print(f"u16 table: gadgets {gadgets_s:.4f} s, build {build_s:.4f} s, "
+          f"witgen {witgen_s:.4f} s")
+    host_wires = gl.to_ints(circuit.wires)
+    # two challenges' deltas at once, as the prover sends them
+    deltas = [int(v) % gl.P for v in np.random.default_rng(4).integers(
+        0, 1 << 62, 8)]
+    dev = gl.to_ints(prover.compute_lookup_polys(
+        gl, u16.common, circuit.lookup_rows, circuit.wires, deltas))
+    ref = [r for i in (0, 4) for r in prover.compute_lookup_polys_host(
+        u16.common, circuit.lookup_rows, host_wires, deltas[i:i + 4])]
+    same = bool(np.array_equal(dev, np.asarray(ref, np.uint64)))
+    expect("u16 lookup_polys on the card vs the scalar host reference",
+           {"lookup_polys": same})
+    # the lookup_polys phase alone: its launches and device time
+    t0 = time.perf_counter()
+    prover.compute_lookup_polys(gl, u16.common, circuit.lookup_rows,
+                                circuit.wires, deltas)
+    torch.cuda.synchronize()
+    lp = _profile(lambda: prover.compute_lookup_polys(
+        gl, u16.common, circuit.lookup_rows, circuit.wires, deltas),
+        (time.perf_counter() - t0) * 1e3)
+    lp_launches = sum(k["launches"] for k in lp["kernels"])
+    print(f"u16 lookup_polys (two challenges): {lp['wall_ms']:.2f} ms, "
+          f"{lp_launches} launches, device {lp['device_ms']:.2f} ms")
+    ops.calls = []
+    try:
+        prover.prove(circuit, device="cuda")
+    finally:
+        calls["u16_prove"], ops.calls = ops.calls, None
+    proofs, times, phases, launches, prof = _timed_proves(
+        lambda t: prover.prove(circuit, device="cuda", timings=t), 3,
+        "u16 table 2^12", failures, gl_kernels)
+    u16.verify(proofs[0])
+    rejects(u16, proofs[0], "u16 table 2^12", bump_output)
+    made.append(("u16_2e12", proofs[0], u16.verifier_only, u16.common))
+    rec["u16"] = dict(gadgets_s=gadgets_s, build_s=build_s,
+                      build_launches=build_launches, witgen_s=witgen_s,
+                      prove_s=times, phases=phases, launches=launches,
+                      profile=prof, lookup_polys_launches=lp_launches,
+                      lookup_polys_profile=lp)
+
+    # the CPU tests' circuits against their JAX fixtures, on the card
+    zk1 = CircuitConfig.standard_recursion_zk_config_gl()
+    zk1 = replace(zk1, fri_config=replace(zk1.fri_config,
+                                          num_query_rounds=1))
+    small = {}
+    for name, make, config, values in (
+            ("zk_fib_1q", circuits.zk_fib, zk1, circuits.ZK_FIB_INPUTS),
+            ("lookup_tip5", circuits.tip5_lookups, std, circuits.TIP5_INPUTS),
+            ("lookup_two_tables", circuits.two_tables, std,
+             circuits.TWO_TABLE_INPUTS)):
+        data, ins, *_ = _built(make, config, name, {})
+        pw = PartialWitness()
+        pw.set_targets(ins, values)
+        rng = NonRandomRng(1)
+        proof = data.prove(pw, rng=rng)
+        arrays, meta = read_fixture(os.path.join(ROOT, DATA.format(
+            name + ".npz")))
+        flat = flatten_proof(proof)
+        ok = {"meta": circuit_meta(data, "goldilocks") == meta,
+              "constants_sigmas_cap": bool(np.array_equal(np.asarray(
+                  data.verifier_only.constants_sigmas_cap, np.uint64),
+                  arrays["constants_sigmas_cap"])),
+              "counter": rng.counter == int(arrays["proof_counter"])}
+        ok.update({f"proof_{k}": bool(np.array_equal(v, arrays["proof_" + k]))
+                   for k, v in flat.items()})
+        expect(f"{name} on the card vs the JAX fixture", ok)
+        data.verify(proof)
+        rejects(data, proof, name, bump_output)
+        made.append((name, proof, data.verifier_only, data.common))
+        small[name] = (data, proof)
+
+    # -- C: the recursive verifier over the Tip5-16 lookup proof ----------
+    tip5, tip5_proof = small["lookup_tip5"]
+    lr, _, gadgets_s, build_s, _ = _built(
+        lambda b: holder.update(t=circuits.recursive_verifier(
+            b, tip5.common)), std, "lookup_recursive_build", {})
+    proof_t, vk_t = holder["t"]
+    ok = _common_equal(lr.common, ser.read_common_circuit_data(
+        _read_bin("lookup_recursive_common.bin")))
+    ok["constants_sigmas_cap_and_digest"] = lr.verifier_only == \
+        ser.read_verifier_only_circuit_data(_read_bin(
+            "lookup_recursive_verifier.bin"))
+    pw = PartialWitness()
+    rv.set_proof_with_pis_target(pw, proof_t, tip5_proof)
+    rv.set_verifier_data_target(pw, vk_t, tip5.verifier_only)
+    rng = NonRandomRng(1)
+    t0 = time.perf_counter()
+    circuit = lr.circuit(pw, rng)
+    witgen_s = time.perf_counter() - t0
+    import hashlib
+    digests = np.stack([np.frombuffer(hashlib.sha256(np.ascontiguousarray(
+        col, dtype=np.uint64).tobytes()).digest(), dtype=np.uint8)
+        for col in gl.to_ints(circuit.wires)])
+    with np.load(os.path.join(ROOT, DATA.format(
+            "lookup_recursive.npz"))) as z:
+        ok["witness_columns"] = bool(np.array_equal(digests,
+                                                    z["column_sha256"]))
+        ok["counter"] = rng.counter == int(z["counter"])
+    expect("lookup recursion outer built and witnessed vs the JAX build",
+           ok)
+    t0 = time.perf_counter()
+    proof = prover.prove(circuit, device="cuda")
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    lr.verify(proof)
+    rejects(lr, proof, f"lookup recursion outer 2^{lr.common.degree_bits}",
+            bump_wire)
+    print(f"lookup recursion outer 2^{lr.common.degree_bits}: gadgets "
+          f"{gadgets_s:.4f} s, build {build_s:.4f} s, witgen "
+          f"{witgen_s:.4f} s, prove {prove_s:.4f} s")
+    made.append(("lookup_recursive", proof, lr.verifier_only, lr.common))
+    rec["lookup_recursive"] = dict(gadgets_s=gadgets_s, build_s=build_s,
+                                   witgen_s=witgen_s, prove_s=prove_s)
 
 
 def phase_verify(made, failures) -> dict:
@@ -397,18 +792,7 @@ def phase_recursion(inner, inner_proof, report, failures, calls) -> list:
     common = outer.common
     ok = {
         "degree_bits": common.degree_bits == want.degree_bits == 12,
-        "config": common.config == want.config,
-        "fri_params": common.fri_params == want.fri_params,
-        "gates": [g.id() for g in common.gates]
-        == [g.id() for g in want.gates],
-        "selectors": common.selectors_info.selector_indices
-        == want.selectors_info.selector_indices
-        and [tuple(g) for g in common.selectors_info.groups]
-        == [tuple(g) for g in want.selectors_info.groups],
-        "counts": all(getattr(common, k) == getattr(want, k) for k in (
-            "quotient_degree_factor", "num_gate_constraints",
-            "num_constants", "num_public_inputs", "k_is",
-            "num_partial_products")),
+        **_common_equal(common, want),
         "constants_sigmas_cap_and_digest": outer.verifier_only
         == ser.read_verifier_only_circuit_data(blob("verifier")),
         "public_inputs": circuit.public_inputs
@@ -565,12 +949,14 @@ def main() -> int:
         out = kernel_fn()
         torch.cuda.synchronize()
         launched = sum(ops.launch_counts().values())
+        # the compared call is also the plain version's warm-up
         ref = plain_fn()
+        torch.cuda.synchronize()
         mism, err = _compare(out, ref) if not isinstance(out, list) else \
             max((_compare(a, b) for a, b in zip(out, ref)),
                 key=lambda t: t[0])
         ms = _cuda_ms(kernel_fn, reps)
-        plain_ms = _cuda_ms(plain_fn, 1)
+        plain_ms = _cuda_ms(plain_fn, 1, warm_up=False)
         b_ms, b_by = bound(nbytes, field_muls)
         line = dict(kernel=name, mismatches=mism, max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -879,12 +1265,12 @@ def main() -> int:
         want = [int(v) for v in arrays["values"]]
         real, seen = prover._internal_prove, []
 
-        def internal_prove(circuit_, wires, timings):
+        def internal_prove(circuit_, wires, timings, rng):
             row, col = circuit_.random_wire
             seen.append(int(circuit_.F.to_ints(wires[col, row:row + 1])[0]))
             if len(seen) <= len(want):
                 raise prover.InvZeroPermArg()
-            return real(circuit_, wires, timings)
+            return real(circuit_, wires, timings, rng)
 
         prover._internal_prove = internal_prove
         try:
@@ -1102,6 +1488,33 @@ def main() -> int:
         print("recursive calls: " + json.dumps(recursive_calls))
     except Exception as e:
         failures.append(f"recursion phase: {type(e).__name__}: {e}")
+
+    # -- phase 7: zero knowledge and lookups ---------------------------------
+    zk_calls = {}
+    try:
+        phase_zk_lookups(report, failures, zk_calls, made)
+    except Exception as e:
+        failures.append(f"zk and lookups phase: {type(e).__name__}: {e}")
+    try:
+        # every kernel at each new shape the zk and lookup builds and
+        # proves launch
+        done = {tuple(c) for calls in (*prove_calls.values(),
+                                       *build_calls.values(),
+                                       *recursive_calls.values())
+                for c in calls}
+        for call in sorted({tuple(c) for calls in zk_calls.values()
+                            for c in calls} - done):
+            prove_shape_check(call)
+            key = _shape_key(call)
+            report["checks"][key]["call"] = list(call)
+            if probe_rate:
+                probe_bound(key, report["checks"][key])
+        report["zk_lookup_calls"] = zk_calls
+        print("zk and lookup calls: " + json.dumps(
+            {k: sorted(set(map(tuple, v))) for k, v in zk_calls.items()}))
+    except Exception as e:
+        failures.append(f"zk and lookup shape checks: {type(e).__name__}: "
+                        f"{e}")
 
     # -- phase 5: the verifier, on the host ----------------------------------
     try:

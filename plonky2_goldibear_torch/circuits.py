@@ -72,22 +72,26 @@ def builder_mix(builder) -> List:
 MIX_INPUTS = (3, 5)
 
 
-def recursive_verifier(builder, inner_common, rv=None):
+def recursive_verifier(builder, inner_common, rv=None,
+                       public_inputs: bool = True):
     """The recursive-verifier circuit of ``bench.py:bench_prove_recursive``
     (the reference's plonky2/benches/recursion.rs:154-202): targets of a
     proof of a circuit of ``inner_common`` and of its verifier data, the
     proof verified in the circuit, its public inputs made the outer
-    circuit's.  ``rv`` is the recursive-verifier module of the builder's
-    package (the port's by default).  Returns (proof targets, verifier-data
-    targets); the witness sets them with ``rv.set_proof_with_pis_target``
-    and ``rv.set_verifier_data_target``."""
+    circuit's unless ``public_inputs`` is off (the reference's regression
+    outer, recursive_verifier.rs:895-955, has none).  ``rv`` is the
+    recursive-verifier module of the builder's package (the port's by
+    default).  Returns (proof targets, verifier-data targets); the witness
+    sets them with ``rv.set_proof_with_pis_target`` and
+    ``rv.set_verifier_data_target``."""
     if rv is None:
         from .recursion import recursive_verifier as rv
     proof_t = rv.add_virtual_proof_with_pis(builder, inner_common)
     vk_t = rv.add_virtual_verifier_data(
         builder, inner_common.config.fri_config.cap_height)
     rv.verify_proof(builder, proof_t, vk_t, inner_common)
-    builder.register_public_inputs(proof_t.public_inputs)
+    if public_inputs:
+        builder.register_public_inputs(proof_t.public_inputs)
     return proof_t, vk_t
 
 
@@ -177,4 +181,120 @@ def ext_mix(builder, gd, coset_gate) -> List:
         [sel, ex, ex2, ra, long_sum] + list(sel_ext) + list(ra_ext)
         + list(ci) + list(short) + list(red_b) + list(long_b) + list(shifted)
         + list(ex3) + list(r) + cap_entry)
+    return ins
+
+
+ZK_FIB_STEPS = 30
+ZK_FIB_INPUTS = (1, 2)
+
+
+def zk_fib(builder) -> List:
+    """The circuit of ``tests/test_zk.py``: two public inputs a, b, 30
+    Fibonacci ``add`` steps, and the last as the third public input.  Built
+    under ``standard_recursion_zk_config_gl()`` (the blinding rows make
+    its degree: 2^8 at one FRI query round, 2^11 at six, 2^14 at 28).
+    Returns [a, b]; the witness sets them to ``ZK_FIB_INPUTS``."""
+    b = builder
+    ia, ib = b.add_virtual_target(), b.add_virtual_target()
+    b.register_public_input(ia)
+    b.register_public_input(ib)
+    x, y = ia, ib
+    for _ in range(ZK_FIB_STEPS):
+        x, y = y, b.add(x, y)
+    b.register_public_input(x)
+    return [ia, ib]
+
+
+REGRESSION_NOOPS = 4000
+
+
+def regression_inner(builder, noop_gate, poseidon_gate) -> None:
+    """The inner circuit of the reference's GL recursive-verifier
+    regression (plonky2/src/recursion/recursive_verifier.rs:666-697,
+    ``dummy_proof(standard_recursion_zk_config_gl(), 4000)``): 4000
+    ``noop_gate`` rows, ``poseidon_gate`` in the gate set without a row,
+    and four public inputs, each the zero constant.  Under the zk config
+    its blinding rows take it to 2^14 rows; the recursive verifier over it
+    (``recursive_verifier``) is the circuit of
+    ``tests/data/gl_regression_common.bin``.  The witness sets nothing."""
+    for _ in range(REGRESSION_NOOPS):
+        builder.add_gate(noop_gate, [])
+    builder.add_gate_to_gate_set(poseidon_gate)
+    zero = builder.zero()
+    for _ in range(builder.spec.num_hash_out_elts):
+        builder.register_public_input(zero)
+
+
+# the first 16 entries of the Tip5 table (reference gadgets/lookup.rs:16)
+TIP5_16 = (0, 7, 26, 63, 124, 215, 85, 254, 214, 228, 45, 185, 140, 173,
+           33, 240)
+TIP5_INPUTS = (1, 9, 14)
+
+
+def tip5_lookups(builder) -> List:
+    """The lookup circuit of ``tests/test_recursion_lookups.py`` (reference
+    recursive_verifier.rs:341-413): the 16-entry Tip5 table, three lookups
+    into it, the inputs then the outputs as public inputs.  Returns the
+    three inputs; the witness sets them to ``TIP5_INPUTS``."""
+    b = builder
+    lut = b.add_lookup_table_from_table(list(range(16)), list(TIP5_16))
+    ins = b.add_virtual_targets(3)
+    outs = [b.add_lookup_from_index(t, lut) for t in ins]
+    b.register_public_inputs(ins + outs)
+    return ins
+
+
+TWO_TABLE_INPUTS = (3, 7, 15, 0)
+
+
+def two_table_fn(x: int) -> int:
+    """The second table of ``two_tables``: 3x + 1 mod 256."""
+    return (x * 3 + 1) % 256
+
+
+def two_tables(builder) -> List:
+    """The two-table circuit of ``tests/test_lookups.py``: Tip5-16 and
+    ``two_table_fn`` over 0..15, four lookups alternating between them,
+    inputs then outputs as public inputs.  Returns the four inputs; the
+    witness sets them to ``TWO_TABLE_INPUTS``."""
+    b = builder
+    lut0 = b.add_lookup_table_from_table(list(range(16)), list(TIP5_16))
+    lut1 = b.add_lookup_table_from_fn(two_table_fn, list(range(16)))
+    ins = b.add_virtual_targets(4)
+    outs = [b.add_lookup_from_index(t, lut)
+            for t, lut in zip(ins, (lut0, lut1, lut0, lut1))]
+    b.register_public_inputs(ins + outs)
+    return ins
+
+
+U16_ROTATION = 5
+U16_LOOKUPS = 4500
+U16_PUBLIC_OUTPUTS = 8
+
+
+def u16_rotl(x: int) -> int:
+    """The table of ``u16_table``: x rotated left by 5 bits as a u16."""
+    return ((x << U16_ROTATION) | (x >> (16 - U16_ROTATION))) & 0xFFFF
+
+
+def u16_inputs() -> List[int]:
+    """The inputs the witness gives ``u16_table``'s lookups: spread over
+    the whole table."""
+    return [(i * 40503 + 12345) % 65536 for i in range(U16_LOOKUPS)]
+
+
+def u16_table(builder) -> List:
+    """One u16 table of all 2^16 inputs (``u16_rotl``), the size of the
+    reference's lookup_test.rs ``test_big_lut``, and ``U16_LOOKUPS``
+    lookups into it (4500: 113 LookupGate rows of 40 slots beside the
+    table's 2521 LookupTableGate rows of 26, so 2^12 rows under
+    ``standard_recursion_config_gl()``).  The first and last four outputs
+    are the public inputs.  Returns the inputs; the witness sets them to
+    ``u16_inputs()``."""
+    b = builder
+    lut = b.add_lookup_table_from_fn(u16_rotl, list(range(1 << 16)))
+    ins = b.add_virtual_targets(U16_LOOKUPS)
+    outs = [b.add_lookup_from_index(t, lut) for t in ins]
+    half = U16_PUBLIC_OUTPUTS // 2
+    b.register_public_inputs(outs[:half] + outs[-half:])
     return ins

@@ -6,17 +6,28 @@ low-degree-extend each polynomial onto the coset ``shift * <g>`` at rate
 and Merkle-hash with a cap.  Polynomials are (num_polys, n) tensors of
 the field module ``F``, hashed with ``hasher`` (Goldilocks and Poseidon-GL
 by default).
+
+A blinded batch (a zero-knowledge proof's wires, Z/partial-product and
+quotient oracles) salts its leaves: ``SALT_SIZE`` rows of random values on
+the LDE coset, drawn from the prover's rng per row and then per point
+(reference fri/oracle.rs:139-149), follow the LDE rows into the leaves, so
+the sponge hashes ``num_polys + 4`` elements a leaf.  The LDE the prover
+reads (quotient, FRI combine) stays unsalted.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from ..field import fft as fftm
 from ..field import gl
 from ..hash import merkle, poseidon_gl
+from ..iop.generator import Rng, rand_field_elements
+
+# salt rows of a blinded batch (reference fri/oracle.rs:25)
+SALT_SIZE = 4
 
 
 def lde_values(coeffs: torch.Tensor, rate_bits: int, F=gl) -> torch.Tensor:
@@ -30,31 +41,45 @@ def leaves_from_lde(lde: torch.Tensor) -> torch.Tensor:
     return fftm.reverse_index_bits(lde.t(), dim=0).contiguous()
 
 
+def random_salt(m: int, F, rng: Rng, device) -> torch.Tensor:
+    """(SALT_SIZE, m) random field values, row by row."""
+    vals = rand_field_elements(F.P, rng, SALT_SIZE * m)
+    return F.from_ints(vals.reshape(SALT_SIZE, m), device)
+
+
 def commit_coeffs(coeffs: torch.Tensor, rate_bits: int, cap_height: int,
-                  F=gl, hasher=poseidon_gl
+                  F=gl, hasher=poseidon_gl, salt_rng: Optional[Rng] = None
                   ) -> Tuple[torch.Tensor, merkle.MerkleTree]:
-    """Coefficient batch -> (natural-order LDE, Merkle tree of its leaves)."""
+    """Coefficient batch -> (natural-order LDE, Merkle tree of its leaves,
+    salted from ``salt_rng`` when one is given)."""
     lde = lde_values(coeffs, rate_bits, F)
-    return lde, merkle.MerkleTree(leaves_from_lde(lde), cap_height, hasher)
+    rows = lde
+    if salt_rng is not None:
+        rows = torch.cat([lde, random_salt(lde.shape[-1], F, salt_rng,
+                                           lde.device)])
+    return lde, merkle.MerkleTree(leaves_from_lde(rows), cap_height, hasher)
 
 
 class PolynomialBatch:
     """Committed batch of polynomials (the FRI oracle): coefficients for the
     openings, the natural-order LDE for the quotient and FRI combine, and
-    the Merkle tree over the bit-reversed leaf rows."""
+    the Merkle tree over the bit-reversed leaf rows, salted from
+    ``salt_rng`` when one is given (a blinded oracle)."""
 
     def __init__(self, coeffs: torch.Tensor, rate_bits: int, cap_height: int,
-                 F=gl, hasher=poseidon_gl):
+                 F=gl, hasher=poseidon_gl, salt_rng: Optional[Rng] = None):
         self.coeffs = coeffs
         self.lde, self.tree = commit_coeffs(coeffs, rate_bits, cap_height,
-                                            F, hasher)
+                                            F, hasher, salt_rng)
 
     @classmethod
     def from_values(cls, values: torch.Tensor, rate_bits: int,
-                    cap_height: int, F=gl, hasher=poseidon_gl):
+                    cap_height: int, F=gl, hasher=poseidon_gl,
+                    salt_rng: Optional[Rng] = None):
         """Values on the 2-adic subgroup -> iFFT -> commit (reference
         fri/oracle.rs:68-91)."""
-        return cls(fftm.ifft(values, F), rate_bits, cap_height, F, hasher)
+        return cls(fftm.ifft(values, F), rate_bits, cap_height, F, hasher,
+                   salt_rng)
 
     def cap_host(self) -> List[List[int]]:
         return self.tree.cap_host()

@@ -1,4 +1,6 @@
-"""Gates, constraint side, and the id strings the port accepts."""
+"""Gates, constraint side, and the id strings the port accepts (a lookup
+gate's id carries its table's hash: ``gate_from_id`` finds the table among
+the circuit's ``luts``)."""
 
 import re
 
@@ -9,6 +11,7 @@ from .basic_gates import ArithmeticGate, ConstantGate, NoopGate, \
     PublicInputGate
 from .coset_interpolation import CosetInterpolationGate
 from .extension_gates import ArithmeticExtensionGate, MulExtensionGate
+from .lookup_gates import LookupGate, LookupTableGate, lut_hash
 from .poseidon import PoseidonGate
 from .poseidon2_bb_gate import Poseidon2BabyBearGate
 from .poseidon_mds import PoseidonMdsGate
@@ -50,10 +53,29 @@ _PATTERNS = [
 _PATTERNS = [(re.compile(p), make) for p, make in _PATTERNS]
 
 
-def gate_from_id(gate_id: str, spec: host.FieldSpec = host.GOLDILOCKS
-                 ) -> Gate:
+_LOOKUP_PATTERNS = [
+    (re.compile(r"LookupGate \{num_slots: (\d+), lut_hash: \[[\d, ]*\]\}"),
+     lambda m, lut: LookupGate(int(m[1]), lut)),
+    (re.compile(r"LookupTableGate \{num_slots: (\d+), lut_hash: "
+                r"\[[\d, ]*\], last_lut_row: (\d+)\}"),
+     lambda m, lut: LookupTableGate(int(m[1]), lut, int(m[2]))),
+]
+
+
+def gate_from_id(gate_id: str, spec: host.FieldSpec = host.GOLDILOCKS,
+                 luts=()) -> Gate:
     """The port's gate for a reference id string over the field of
-    ``spec``; raises on any other."""
+    ``spec`` (a lookup gate's table among ``luts``, by its hash); raises on
+    any other."""
+    for pattern, make in _LOOKUP_PATTERNS:
+        m = pattern.fullmatch(gate_id)
+        if m:
+            for lut in luts:
+                gate = make(m, tuple(tuple(e) for e in lut))
+                if gate.id() == gate_id:
+                    return gate
+            raise ValueError(f"no table of the circuit has the hash of "
+                             f"{gate_id!r}")
     for pattern, make in _PATTERNS:
         m = pattern.fullmatch(gate_id)
         if m:

@@ -53,11 +53,42 @@ class _FusedOpsMixin:
     def mul_sub(self, a, b, c):
         return self.sub(self.mul(a, b), c)
 
-    def mul_many(self, terms):
+    def product(self, terms):
+        """The product of ``terms`` from the first on (one for none)."""
         out = None
         for t in terms:
             out = t if out is None else self.mul(out, t)
         return out if out is not None else self.one()
+
+    def mul_many(self, terms):
+        """The product of ``terms`` (the circuit algebra's starts from
+        one, as the reference's mul_many_extension does)."""
+        return self.product(terms)
+
+    def leave_one_out_sum(self, terms, weights=None):
+        """sum_i w_i * prod_{j != i} terms[j] (w_i = 1 without weights)."""
+        terms = list(terms)
+        if not terms:
+            return self.zero()
+        acc = None
+        for i in range(len(terms)):
+            t = self.product(terms[:i] + terms[i + 1:])
+            if weights is not None:
+                t = self.mul(weights[i], t)
+            acc = t if acc is None else self.add(acc, t)
+        return acc
+
+    def add_scaled(self, xs, ys, s):
+        """x + s * y for each pair, s a base-field scalar."""
+        return [self.add(x, self.mul_scalar(y, s)) for x, y in zip(xs, ys)]
+
+    def horner(self, terms, s):
+        """sum_i s^i terms[i] by Horner with ``mul_scalar``, s a
+        base-field scalar (reference plonk_common.rs:122-135)."""
+        cumul = self.zero()
+        for term in reversed(list(terms)):
+            cumul = self.add(self.mul_scalar(cumul, s), term)
+        return cumul
 
     def const_mul_add(self, c: int, x, acc):
         """c * x + acc with a constant c known on the host."""
@@ -82,13 +113,9 @@ class _FusedOpsMixin:
         return self.mul(x3, x4)
 
     def reduce_with_powers(self, terms, alpha):
-        """sum_i alpha^i terms[i], alpha a base-field scalar, by Horner
-        (reference plonk_common.rs:122-135; the circuit algebra reduces
-        with Reducing gates instead)."""
-        cumul = self.zero()
-        for term in reversed(list(terms)):
-            cumul = self.add(self.mul_scalar(cumul, alpha), term)
-        return cumul
+        """The vanishing terms combined by ``horner`` (the circuit algebra
+        reduces with Reducing gates instead)."""
+        return self.horner(terms, alpha)
 
 
 class HostExtAlgebra(_FusedOpsMixin):
@@ -214,13 +241,54 @@ class DeviceBaseAlgebra(_FusedOpsMixin):
     def lift_scalar(self, s):
         return s
 
-    def mul_many(self, terms):
+    # the products and sums over many terms run on the stacked terms
+    @staticmethod
+    def _stack(terms):
+        return torch.stack(torch.broadcast_tensors(*terms))
+
+    def product(self, terms):
         """One log-depth ``batch_prod`` over the stacked terms."""
         terms = list(terms)
-        if len(terms) <= 2:
-            return super().mul_many(terms)
-        return self.F.batch_prod(torch.stack(torch.broadcast_tensors(
-            *terms)), axis=0)
+        if len(terms) < 2:
+            return super().product(terms)
+        return self.F.batch_prod(self._stack(terms), axis=0)
+
+    def leave_one_out_sum(self, terms, weights=None):
+        """From exclusive prefix and suffix products, two scans."""
+        terms = list(terms)
+        if not terms:
+            return self.zero()
+        F = self.F
+        st = self._stack(terms)
+        one = F.ones((1,) + st.shape[1:], st.device)
+        pre = torch.cat([one, F.cumprod(st, axis=0)[:-1]])
+        suf = torch.cat([one, F.cumprod(st.flip(0), axis=0)[:-1]]).flip(0)
+        loo = F.mul(pre, suf)
+        if weights is not None:
+            loo = F.mul(loo, self._stack(weights))
+        return F.batch_sum(loo, axis=0)
+
+    def add_scaled(self, xs, ys, s):
+        F = self.F
+        return list(F.add(self._stack(xs), F.mul(self._stack(ys), s))
+                    .unbind(0))
+
+    def horner(self, terms, s):
+        """One power-weighted sum over the stacked terms."""
+        terms = list(terms)
+        if not terms:
+            return self.zero()
+        return reduce_with_powers_stacked(self.F, self._stack(terms), s)
+
+
+def reduce_with_powers_stacked(F, terms: torch.Tensor, alpha) -> torch.Tensor:
+    """sum_i alpha^i terms[i] over a (k, m) stack, alpha a 0-d tensor
+    (reference plonk_common.rs:122-135)."""
+    k = terms.shape[0]
+    pows = torch.cat([F.ones((1,), terms.device),
+                      F.cumprod(alpha.expand(k - 1), axis=0)])
+    shape = (k,) + (1,) * (terms.dim() - 1)
+    return F.batch_sum(F.mul(terms, pows.reshape(shape)), axis=0)
 
 
 class EvaluationVars:

@@ -13,12 +13,15 @@ in its order, so the circuit's layout (and digest) is the reference's.
 from __future__ import annotations
 
 from ..iop import target as tgt
+from .base import _FusedOpsMixin
 from .poseidon_mds import PoseidonMdsGate
 
 
-class CircuitExtAlgebra:
+class CircuitExtAlgebra(_FusedOpsMixin):
     """Values are extension targets; base-field scalars (challenges) are
-    targets."""
+    targets.  The logUp terms' ``product``, ``leave_one_out_sum``,
+    ``add_scaled`` and ``horner`` are the mixin's loops over the gadgets
+    below, the order of the reference's lookup circuit code."""
 
     def __init__(self, builder):
         self.b = builder

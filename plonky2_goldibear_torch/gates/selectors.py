@@ -64,3 +64,39 @@ def selector_polynomials(gates, instances, max_degree: int, p: int):
         polys[selector_indices[i]][row] = i
     return polys, SelectorsInfo(selector_indices=selector_indices,
                                 groups=groups)
+
+
+# the four shared lookup selectors (reference selectors.rs:36-40): the
+# table rows' running-sum transition, the looking rows' transition, the
+# row after a table (initial values), the last looking row; then one end
+# selector per table
+LOOKUP_SEL_TRANS_SRE = 0
+LOOKUP_SEL_TRANS_LDC = 1
+LOOKUP_SEL_INIT_SRE = 2
+LOOKUP_SEL_LAST_LDC = 3
+LOOKUP_SEL_START_END = 4
+
+
+def selectors_lookup(n_rows: int, lookup_rows) -> List[np.ndarray]:
+    """The four shared lookup selectors (reference selectors.rs:52-85);
+    ``lookup_rows`` holds one (last looking row, last table row, first
+    table row) triple a table, its rows laid out upside down."""
+    polys = [np.zeros(n_rows, dtype=np.uint64)
+             for _ in range(LOOKUP_SEL_START_END)]
+    for last_lu, last_lut, first_lut in lookup_rows:
+        polys[LOOKUP_SEL_TRANS_SRE][last_lut:first_lut + 1] = 1
+        polys[LOOKUP_SEL_TRANS_LDC][last_lu:last_lut] = 1
+        polys[LOOKUP_SEL_INIT_SRE][first_lut + 1] = 1
+        polys[LOOKUP_SEL_LAST_LDC][last_lu] = 1
+    return polys
+
+
+def selector_ends_lookups(n_rows: int, lookup_rows) -> List[np.ndarray]:
+    """One selector a table, 1 at its last table row (reference
+    selectors.rs:88-112)."""
+    out = []
+    for _, last_lut, _ in lookup_rows:
+        p = np.zeros(n_rows, dtype=np.uint64)
+        p[last_lut] = 1
+        out.append(p)
+    return out

@@ -14,7 +14,7 @@ JAX functions.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Union
+from typing import Dict, List, Union
 
 import numpy as np
 
@@ -25,52 +25,77 @@ U64 = (1 << 64) - 1
 
 
 class NonRandomRng:
-    """The reference's NonRandomRng (types.rs:49-77): ``next_u64`` returns
-    counter + 1, counter + 2, ... (2, 3, 4, ... from the reset state of
-    1); ``next_u32`` is its truncation."""
+    """The reference's NonRandomRng (types.rs:49-77): its u64 words are
+    counter + 1, counter + 2, ... mod 2^64 (2, 3, 4, ... from the reset
+    state of 1), its u32 words their truncations; ``_counter_draws``
+    consumes them."""
 
     def __init__(self, counter: int = 1):
         self.counter = counter
-
-    def next_u64(self) -> int:
-        self.counter += 1
-        return self.counter & U64
-
-    def next_u32(self) -> int:
-        return self.next_u64() & 0xFFFFFFFF
 
 
 Rng = Union[NonRandomRng, np.random.Generator]
 
 
-def _uniform_sample_single(p: int, bits: int,
-                           next_fn: Callable[[], int]) -> int:
-    """rand 0.8.4 UniformInt<uN>::sample_single for gen_range(0..p): a
-    widening multiply by p, rejected while the low half lies above the
-    zone."""
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _mul_wide(v: np.ndarray, c: int):
+    """(hi, lo) 64-bit halves of v * c, v a uint64 array, c < 2^64."""
+    v = v.astype(np.uint64)
+    vl, vh = v & _M32, v >> np.uint64(32)
+    cl, ch = np.uint64(c & 0xFFFFFFFF), np.uint64(c >> 32)
+    ll, lh, hl, hh = vl * cl, vl * ch, vh * cl, vh * ch
+    mid = (ll >> np.uint64(32)) + (lh & _M32) + (hl & _M32)
+    lo = (ll & _M32) | ((mid & _M32) << np.uint64(32))
+    hi = hh + (lh >> np.uint64(32)) + (hl >> np.uint64(32)) + \
+        (mid >> np.uint64(32))
+    return hi, lo
+
+
+def _counter_draws(p: int, rng: NonRandomRng, n: int) -> np.ndarray:
+    """n draws of rand 0.8.4's UniformInt<uN>::sample_single for
+    gen_range(0..p) from the counter (u64 for Goldilocks, the u32
+    truncation for BabyBear): a widening multiply by p, the counter values
+    whose low half lies above the zone skipped."""
+    bits = 64 if p > 0xFFFFFFFF else 32
     mask = (1 << bits) - 1
-    lz = bits - p.bit_length()
-    zone = ((p << lz) - 1) & mask
-    while True:
-        v = next_fn() & mask
-        prod = v * p
-        hi, lo = prod >> bits, prod & mask
-        if lo <= zone:
-            return hi
+    zone = ((p << (bits - p.bit_length())) - 1) & mask
+    out = []
+    while n:
+        k = n + 8 + n // 1024
+        v = np.arange(k, dtype=np.uint64) + np.uint64((rng.counter + 1)
+                                                      & U64)
+        if bits == 32:
+            prod = (v & _M32) * np.uint64(p)
+            hi, lo = prod >> np.uint64(32), prod & _M32
+        else:
+            hi, lo = _mul_wide(v, p)
+        ok = np.flatnonzero(lo <= np.uint64(zone))[:n]
+        out.append(hi[ok])
+        rng.counter += int(ok[-1]) + 1 if len(ok) == n else k
+        n -= len(ok)
+    return np.concatenate(out) if out else np.zeros(0, np.uint64)
+
+
+def rand_field_elements(p: int, rng: Rng, n: int) -> np.ndarray:
+    """n field elements of F_p drawn from ``rng`` (uint64): with a
+    ``NonRandomRng``, ``rng.gen_range(0..p)`` as the reference samples it;
+    otherwise 124 random bits reduced mod p (bias below 2^-64), two
+    ``integers`` words an element.  Equal to n draws of one element."""
+    if n == 0:
+        return np.zeros(0, np.uint64)
+    if isinstance(rng, NonRandomRng):
+        return _counter_draws(p, rng, n)
+    words = rng.integers(0, 1 << 62, size=2 * n, dtype=np.int64).tolist()
+    return np.fromiter(((h << 62 | lo) % p for h, lo in
+                        zip(words[0::2], words[1::2])), dtype=np.uint64,
+                       count=n)
 
 
 def rand_field_element(p: int, rng: Rng) -> int:
-    """A field element of F_p drawn from ``rng``: with a ``NonRandomRng``,
-    ``rng.gen_range(0..p)`` as the reference samples it (u64 for
-    Goldilocks, u32 for BabyBear); otherwise 124 random bits reduced mod p
-    (bias below 2^-64)."""
-    if isinstance(rng, NonRandomRng):
-        if p > 0xFFFFFFFF:
-            return _uniform_sample_single(p, 64, rng.next_u64)
-        return _uniform_sample_single(p, 32, rng.next_u32)
-    hi = int(rng.integers(0, 1 << 62, dtype=np.int64))
-    lo = int(rng.integers(0, 1 << 62, dtype=np.int64))
-    return ((hi << 62) | lo) % p
+    """One field element of F_p drawn from ``rng``."""
+    return int(rand_field_elements(p, rng, 1)[0])
 
 
 class SimpleGenerator:
@@ -137,6 +162,25 @@ class RandomValueGenerator(SimpleGenerator):
 
     def run_once(self, witness, out):
         out.append((self.target, rand_field_element(self.p, witness.rng)))
+
+
+class RandomRowGenerator(SimpleGenerator):
+    """Random values for ``wires`` of a blinding row, drawn at once (one
+    ``RandomValueGenerator`` a wire in the reference,
+    circuit_builder.rs:934-944; the same values in the same order)."""
+
+    def __init__(self, row: int, wires, p: int):
+        self.row = row
+        self.wires = list(wires)
+        self.p = p
+
+    def dependencies(self):
+        return []
+
+    def run_once(self, witness, out):
+        vals = rand_field_elements(self.p, witness.rng, len(self.wires))
+        out.extend((tgt.wire(self.row, w), int(v))
+                   for w, v in zip(self.wires, vals.tolist()))
 
 
 def generate_partial_witness(inputs: PartialWitness, prover_data,

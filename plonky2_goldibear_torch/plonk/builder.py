@@ -1,14 +1,17 @@
 """Circuit builder (reference plonky2/src/plonk/circuit_builder.rs:144-1410,
-gadgets/arithmetic.rs:30-165, gadgets/arithmetic_extension.rs; the JAX
-package's ``plonk/builder.py`` without lookups, zk and the misc gates).
+gadgets/arithmetic.rs:30-165, gadgets/arithmetic_extension.rs,
+gadgets/lookup.rs; the JAX package's ``plonk/builder.py`` without the misc
+gates).
 
 The builder is a host frontend: targets, gates placed row by row, copy
-constraints and constants, base-field and extension arithmetic, for the
-gates the port has (Arithmetic, Constant, PublicInput, Noop, Poseidon-GL,
-Poseidon2-BB width 16, and the recursive verifier's: the extension
-arithmetic, reducing, random-access, base-sum, coset-interpolation and
-Poseidon MDS gates, placed by ``plonk/gadgets.py``).
-``build`` lays out the selectors, constants and sigmas, commits the
+constraints and constants, base-field and extension arithmetic, lookup
+tables and lookups, for the gates the port has (Arithmetic, Constant,
+PublicInput, Noop, Poseidon-GL, Poseidon2-BB width 16, the two lookup
+gates, and the recursive verifier's: the extension arithmetic, reducing,
+random-access, base-sum, coset-interpolation and Poseidon MDS gates,
+placed by ``plonk/gadgets.py``).  ``build`` places the lookup rows and,
+under a zero-knowledge config, the blinding rows, lays out the selectors
+(the lookup selectors too), constants and sigmas, commits the
 constants/sigmas on the device with the port's ``PolynomialBatch`` (the
 NTT, leaf-sponge and Merkle kernels on the card), collects the witness
 generators and hashes the circuit digest.  What this slice does not carry
@@ -30,6 +33,7 @@ from ..gates import selectors as selectors_mod
 from ..gates.basic_gates import (ArithmeticGate, ConstantGate, NoopGate,
                                  PublicInputGate)
 from ..gates.extension_gates import ArithmeticExtensionGate, MulExtensionGate
+from ..gates.lookup_gates import LookupGate, LookupTableGate
 from ..gates.poseidon import PoseidonGate
 from ..gates.poseidon2_bb_gate import Poseidon2BabyBearGate
 from ..iop import generator as gen
@@ -97,6 +101,12 @@ class CircuitBuilder:
         self._slot_gates: Dict[str, object] = {}
         self.base_arithmetic_results: Dict[Tuple, tgt.Target] = {}
         self.ext_arithmetic_results: Dict[Tuple, Tuple] = {}
+        # lookup tables, each table's (input, output) target pairs, and
+        # each table's (last looking, last table, first table) rows
+        # (circuit_builder.rs:194-197)
+        self.luts: List[Tuple[Tuple[int, int], ...]] = []
+        self.lut_to_lookups: List[List[Tuple]] = []
+        self.lookup_rows: List[Tuple[int, int, int]] = []
         self.context_tree = ContextTree()
 
     def _check_hasher(self, hasher):
@@ -160,6 +170,11 @@ class CircuitBuilder:
         self.gates[gate.id()] = gate
         self.gate_instances.append(GateInstance(gate, constants))
         return row
+
+    def add_gate_to_gate_set(self, gate):
+        """A gate in the circuit's gate set without a row
+        (circuit_builder.rs:533-537)."""
+        self.gates[gate.id()] = gate
 
     def find_slot(self, gate, params: Sequence[int],
                   constants: Sequence[int]) -> Tuple[int, int]:
@@ -538,13 +553,119 @@ class CircuitBuilder:
     def inverse_extension(self, a):
         return self.div_extension(self.one_extension(), a)
 
-    # -- lookups (gadgets/lookup.rs:54-160): item 5 --------------------------
+    # -- lookups (gadgets/lookup.rs:54-160, circuit_builder.rs:744-819) -----
 
-    def add_lookup_table_from_pairs(self, *args):
-        raise _not_ported("lookups", 5)
+    def add_lookup_table_from_pairs(self, pairs) -> int:
+        """The index of the table of (input, output) u16 pairs, registered
+        once."""
+        lut = tuple((int(i) & 0xFFFF, int(o) & 0xFFFF) for i, o in pairs)
+        if lut in self.luts:
+            return self.luts.index(lut)
+        self.luts.append(lut)
+        self.lut_to_lookups.append([])
+        return len(self.luts) - 1
 
-    add_lookup_table_from_table = add_lookup_table_from_fn = \
-        add_lookup_from_index = add_lookup_table_from_pairs
+    def add_lookup_table_from_table(self, inputs, outputs) -> int:
+        return self.add_lookup_table_from_pairs(list(zip(inputs, outputs)))
+
+    def add_lookup_table_from_fn(self, f, inputs) -> int:
+        return self.add_lookup_table_from_pairs([(i, f(i)) for i in inputs])
+
+    def add_lookup_from_index(self, looking_in: tgt.Target,
+                              lut_index: int) -> tgt.Target:
+        """The output target of a lookup of ``looking_in`` in a registered
+        table; its row is placed at ``build``."""
+        assert lut_index < len(self.luts), "unknown lookup table"
+        looking_out = self.add_virtual_target()
+        self.lut_to_lookups[lut_index].append((looking_in, looking_out))
+        return looking_out
+
+    def _add_all_lookups(self):
+        """Each table's LookupGate rows (the last one slot-packed), its
+        LookupTableGate rows, then a NoopGate (gadgets/lookup.rs:83-157):
+        the rows are upside down, so a transition constraint reads this
+        row and the next, and the all-zero Noop row makes the initial
+        constraints plain zero checks."""
+        for lut_index, lut in enumerate(self.luts):
+            lookups = self.lut_to_lookups[lut_index]
+            assert lookups, f"LUT {lut_index} is unused"
+            last_lu_gate = self.num_gates()
+            gate = LookupGate.from_config(self.config, lut)
+            slots = gate.num_slots
+            full = len(lookups) // slots
+            for c in range(full):
+                row = self.add_gate(gate, [])
+                for i, (lin, lout) in enumerate(
+                        lookups[c * slots:(c + 1) * slots]):
+                    self.connect(lin, tgt.wire(
+                        row, LookupGate.wire_ith_looking_inp(i)))
+                    self.connect(lout, tgt.wire(
+                        row, LookupGate.wire_ith_looking_out(i)))
+            for lin, lout in lookups[full * slots:]:
+                row, i = self.find_slot(gate, [lut_index], [])
+                self.connect(lin, tgt.wire(
+                    row, LookupGate.wire_ith_looking_inp(i)))
+                self.connect(lout, tgt.wire(
+                    row, LookupGate.wire_ith_looking_out(i)))
+
+            last_lut_gate = self.num_gates()
+            entries = LookupTableGate.num_slots_of(self.config)
+            tgate = LookupTableGate(entries, lut, last_lut_gate)
+            for _ in range((len(lut) - 1) // entries + 1):
+                self.add_gate(tgate, [])
+            first_lut_gate = self.num_gates() - 1
+            self.add_gate(NoopGate(), [])
+            self.lookup_rows.append((last_lu_gate, last_lut_gate,
+                                     first_lut_gate))
+
+    # -- zero knowledge (circuit_builder.rs:873-980) -------------------------
+
+    def _num_blinding_gates(self, degree_estimate: int) -> Tuple[int, int]:
+        """(regular, Z-pair) blinding rows for a degree estimate: one a
+        value that the openings and FRI queries reveal
+        (circuit_builder.rs:873-898)."""
+        D = self.spec.ext_degree
+        params = self.config.fri_config.fri_params(
+            host.log2_strict(degree_estimate), True)
+        arities = [1 << a for a in params.reduction_arity_bits]
+        prod = 1
+        for a in arities:
+            prod *= a
+        fri_openings = self.config.fri_config.num_query_rounds * (
+            1 + D * sum(a - 1 for a in arities)
+            + D * (degree_estimate // prod))
+        return D + fri_openings, 2 * D + fri_openings
+
+    def _blinding_counts(self) -> Tuple[int, int]:
+        """The blinding rows at the least power-of-two degree that holds
+        the rows and them (circuit_builder.rs:903-922)."""
+        num_gates = len(self.gate_instances)
+        degree_estimate = 1 << host.log2_ceil(max(num_gates, 2))
+        while True:
+            regular, z = self._num_blinding_gates(degree_estimate)
+            if num_gates + regular + 2 * z <= degree_estimate:
+                return regular, z
+            degree_estimate *= 2
+
+    def _blind(self):
+        """A row of random wires for each regular opening; for each Z
+        opening two rows whose routed wires are random and copied from the
+        first to the second (circuit_builder.rs:924-980)."""
+        regular, z_openings = self._blinding_counts()
+        p = self.spec.p
+        config = self.config
+        for _ in range(regular):
+            row = self.add_gate(NoopGate(), [])
+            self.add_simple_generator(gen.RandomRowGenerator(
+                row, range(config.num_wires), p))
+        for _ in range(z_openings):
+            row1 = self.add_gate(NoopGate(), [])
+            row2 = self.add_gate(NoopGate(), [])
+            self.add_simple_generator(gen.RandomRowGenerator(
+                row1, range(config.num_routed_wires), p))
+            for w in range(config.num_routed_wires):
+                self.generate_copy(tgt.wire(row1, w), tgt.wire(row2, w))
+                self.connect(tgt.wire(row1, w), tgt.wire(row2, w))
 
     # -- hashing gadgets (plonk/config.rs:97-166) ----------------------------
 
@@ -614,10 +735,9 @@ class CircuitBuilder:
         of ``gates_and_routing``, ``sigmas``, ``commit`` and ``digest``."""
         dev = devmod.resolve(device)
         config = self.config
+        zk = config.zero_knowledge
         if commit_streaming:
             raise _not_ported("the streaming commit", 9)
-        if config.zero_knowledge:
-            raise _not_ported("zero knowledge (blinding rows and salts)", 5)
         if self.goal_common_data is not None:
             raise _not_ported("cyclic recursion (goal_common_data)", "4b")
         spec = self.spec
@@ -644,6 +764,9 @@ class CircuitBuilder:
                     if gate.complete_wires(self, gate_idx, slot_idx):
                         slots.pop(params, None)
 
+            # the lookup rows (circuit_builder.rs:1142)
+            self._add_all_lookups()
+
             # anti-#456 randomization (circuit_builder.rs:1064-1080)
             random_wire = None
             for w in range(spec.num_hash_out_elts, config.num_wires):
@@ -664,13 +787,16 @@ class CircuitBuilder:
                 cg.constant = c
                 self.add_simple_generator(cg)
 
-            # pad to a power of two (circuit_builder.rs:924-980)
+            # blind, then pad to a power of two (circuit_builder.rs:
+            # 924-980)
+            if zk:
+                self._blind()
             while len(self.gate_instances) & (len(self.gate_instances) - 1):
                 self.add_gate(NoopGate(), [])
 
             degree = len(self.gate_instances)
             degree_bits = host.log2_strict(degree)
-            fri_params = config.fri_config.fri_params(degree_bits, False)
+            fri_params = config.fri_config.fri_params(degree_bits, zk)
             assert fri_params.total_arities() <= \
                 degree_bits + rate_bits - cap_height, \
                 "FRI total reduction arity is too large."
@@ -681,7 +807,14 @@ class CircuitBuilder:
             selector_polys, selectors_info = \
                 selectors_mod.selector_polynomials(
                     gates, self.gate_instances, quotient_degree_factor + 1, p)
-            constant_vecs = list(selector_polys) + self._constant_polys(gates)
+            lookup_selectors = []
+            if self.luts:
+                lookup_selectors = selectors_mod.selectors_lookup(
+                    degree, self.lookup_rows) + \
+                    selectors_mod.selector_ends_lookups(degree,
+                                                        self.lookup_rows)
+            constant_vecs = (list(selector_polys) + lookup_selectors
+                             + self._constant_polys(gates))
 
         with phase(timings, "sigmas", dev):
             subgroup = host.two_adic_subgroup(spec, degree_bits)
@@ -737,7 +870,14 @@ class CircuitBuilder:
             num_public_inputs=num_public_inputs, k_is=k_is,
             num_partial_products=(
                 -(-config.num_routed_wires // quotient_degree_factor) - 1),
-            spec=spec)
+            spec=spec,
+            # 1 running sum + the partial sums of the looking slots
+            # (circuit_builder.rs:1290-1299)
+            num_lookup_polys=1 + -(-LookupGate.num_slots_of(config)
+                                   // (quotient_degree_factor - 1))
+            if self.luts else 0,
+            num_lookup_selectors=len(lookup_selectors),
+            luts=list(self.luts))
         prover_only = ProverOnlyCircuitData(
             generators=self.generators,
             generator_indices_by_watches=by_watches,
@@ -745,7 +885,9 @@ class CircuitBuilder:
             constants_sigmas_commitment=commitment,
             public_inputs=self.public_inputs,
             representative_map=forest.parents,
-            circuit_digest=circuit_digest, random_wire=random_wire)
+            circuit_digest=circuit_digest, random_wire=random_wire,
+            lookup_rows=list(self.lookup_rows),
+            lut_to_lookups=[list(v) for v in self.lut_to_lookups])
         verifier_only = VerifierOnlyCircuitData(
             constants_sigmas_cap=cap, circuit_digest=circuit_digest)
         return CircuitData(common=common, prover_only=prover_only,

@@ -134,12 +134,6 @@ class CommonCircuitData:
     num_lookup_selectors: int = 0
     luts: List = field(default_factory=list)
 
-    def __post_init__(self):
-        if self.num_lookup_polys or self.num_lookup_selectors or self.luts:
-            raise NotImplementedError(
-                "lookup circuits are not ported yet (ROADMAP Queue 1 item "
-                "5)")
-
     @property
     def degree_bits(self) -> int:
         return self.fri_params.degree_bits
@@ -197,8 +191,14 @@ class CommonCircuitData:
                 for o in self.fri_oracles()]
 
     def get_fri_instance(self, zeta: Tuple[int, ...]) -> FriInstanceInfo:
-        """Two opening batches: everything at zeta, the Zs at g * zeta
-        (reference circuit_data.rs:658-706; no lookup polys)."""
+        """Two opening batches: everything at zeta, then the Zs and the
+        lookup polys at g * zeta (reference circuit_data.rs:658-706); the
+        lookup polys follow the Z/partial-product polys in their oracle
+        and close each batch."""
+        lk0 = self.num_zs_partial_products_polys()
+        lookup_polys = FriPolynomialInfo.from_range(
+            ORACLE_ZS_PARTIAL_PRODUCTS, lk0,
+            lk0 + self.num_all_lookup_polys())
         all_polys = (
             FriPolynomialInfo.from_range(ORACLE_CONSTANTS_SIGMAS, 0,
                                          self.num_preprocessed_polys())
@@ -208,12 +208,14 @@ class CommonCircuitData:
                 ORACLE_ZS_PARTIAL_PRODUCTS, 0,
                 self.num_zs_partial_products_polys())
             + FriPolynomialInfo.from_range(ORACLE_QUOTIENT, 0,
-                                           self.num_quotient_polys()))
+                                           self.num_quotient_polys())
+            + lookup_polys)
         g = host.ext_from_base(self.spec,
                                self.spec.two_adic_generator(self.degree_bits))
         zeta_next = host.ext_mul(self.spec, g, zeta)
         next_polys = FriPolynomialInfo.from_range(
-            ORACLE_ZS_PARTIAL_PRODUCTS, 0, self.config.num_challenges)
+            ORACLE_ZS_PARTIAL_PRODUCTS, 0, self.config.num_challenges) + \
+            list(lookup_polys)
         return FriInstanceInfo(oracles=self.fri_oracles(), batches=[
             FriBatchInfo(point=tuple(zeta), polynomials=all_polys),
             FriBatchInfo(point=tuple(zeta_next), polynomials=next_polys)])
@@ -236,6 +238,8 @@ class Circuit:
     F: object = gl
     hasher: object = poseidon_gl
     cache: Dict = field(default_factory=dict, repr=False, compare=False)
+    # each table's (last looking, last table, first table) rows
+    lookup_rows: List[Tuple[int, int, int]] = field(default_factory=list)
 
     @property
     def E(self) -> ext.ExtOps:
@@ -272,20 +276,21 @@ def _common_from_meta(meta: Dict, spec: host.FieldSpec
             rate_bits=fc["rate_bits"], cap_height=fc["cap_height"],
             proof_of_work_bits=fc["proof_of_work_bits"],
             num_query_rounds=fc["num_query_rounds"]))
-    if config.zero_knowledge:
-        raise ValueError("zero-knowledge circuits are not ported yet")
     # the metadata holds the arities, not the strategy: its arity is theirs
     arities = tuple(meta["reduction_arity_bits"])
     if arities:
         config = replace(config, fri_config=replace(
             config.fri_config,
             reduction_strategy=FriReductionStrategy(arity_bits=arities[0])))
-    fri_params = FriParams(config=config.fri_config, hiding=False,
+    fri_params = FriParams(config=config.fri_config,
+                           hiding=config.zero_knowledge,
                            degree_bits=meta["degree_bits"],
                            reduction_arity_bits=arities)
+    luts = [tuple(tuple(int(x) for x in e) for e in lut)
+            for lut in meta.get("luts", [])]
     return CommonCircuitData(
         config=config, fri_params=fri_params,
-        gates=[gate_from_id(g, spec) for g in meta["gates"]],
+        gates=[gate_from_id(g, spec, luts) for g in meta["gates"]],
         selectors_info=SelectorsInfo(
             selector_indices=list(meta["selector_indices"]),
             groups=[tuple(g) for g in meta["selector_groups"]]),
@@ -294,7 +299,9 @@ def _common_from_meta(meta: Dict, spec: host.FieldSpec
         num_constants=meta["num_constants"],
         num_public_inputs=meta["num_public_inputs"],
         k_is=[int(k) for k in meta["k_is"]],
-        num_partial_products=meta["num_partial_products"], spec=spec)
+        num_partial_products=meta["num_partial_products"], spec=spec,
+        num_lookup_polys=meta.get("num_lookup_polys", 0),
+        num_lookup_selectors=meta.get("num_lookup_selectors", 0), luts=luts)
 
 
 def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
@@ -302,9 +309,12 @@ def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
     """Carry a circuit and its witness across as data.
 
     ``arrays``: ``constants_sigmas`` (num_constants + num_routed_wires, n)
-    values, ``wires`` (num_wires, n) and ``public_inputs`` (k,), all
-    canonical uint64.  ``meta``: the plain-Python metadata written by the
-    fixture writer.  Commits the constants/sigmas on ``device``; raises on a
+    values, ``wires`` (num_wires, n; a lookup circuit's with the
+    multiplicities and padding of ``prover.set_lookup_wires``) and
+    ``public_inputs`` (k,), all canonical uint64.  ``meta``: the
+    plain-Python metadata written by the fixture writer (a zk circuit's
+    config hides; a lookup circuit's brings its tables and lookup rows).
+    Commits the constants/sigmas on ``device``; raises on a
     field or gate id the port does not have."""
     dev = devmod.resolve(device)
     field = meta.get("field", "goldilocks")
@@ -331,7 +341,8 @@ def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
         circuit_digest=[int(v) for v in meta["circuit_digest"]],
         random_wire=tuple(meta["random_wire"]) if meta.get("random_wire")
         else None,
-        device=dev, F=F, hasher=hasher)
+        device=dev, F=F, hasher=hasher,
+        lookup_rows=[tuple(r) for r in meta.get("lookup_rows", [])])
 
 
 def circuit_meta(data, field: str) -> dict:
@@ -341,7 +352,7 @@ def circuit_meta(data, field: str) -> dict:
     cfg = common.config
     fc = cfg.fri_config
     po = data.prover_only
-    return {
+    meta = {
         "field": field,
         "config": {
             "num_wires": cfg.num_wires,
@@ -373,6 +384,14 @@ def circuit_meta(data, field: str) -> dict:
         "circuit_digest": [int(v) for v in po.circuit_digest],
         "random_wire": [int(v) for v in po.random_wire],
     }
+    if common.luts:
+        meta.update({
+            "num_lookup_polys": common.num_lookup_polys,
+            "num_lookup_selectors": common.num_lookup_selectors,
+            "luts": [[list(map(int, e)) for e in lut] for lut in common.luts],
+            "lookup_rows": [list(map(int, r)) for r in po.lookup_rows],
+        })
+    return meta
 
 
 def read_fixture(path: str):
@@ -410,6 +429,10 @@ class ProverOnlyCircuitData:
     representative_map: np.ndarray
     circuit_digest: List[int]
     random_wire: Optional[Tuple[int, int]]   # (row, column)
+    # each table's (last looking, last table, first table) rows, and its
+    # (input, output) target pairs
+    lookup_rows: List[Tuple[int, int, int]] = field(default_factory=list)
+    lut_to_lookups: List[List] = field(default_factory=list)
 
 
 @dataclass
@@ -426,10 +449,11 @@ class CircuitData:
 
     def circuit(self, pw, rng: Rng) -> Circuit:
         """The circuit with the witness of the partial witness ``pw``:
-        witness generation on the host, drawing from ``rng``, then the wire
-        matrix on the device."""
+        witness generation on the host, drawing from ``rng`` (and a lookup
+        circuit's multiplicities), then the wire matrix on the device."""
         po = self.prover_only
         witness = generate_partial_witness(pw, po, self.common, rng)
+        prover.set_lookup_wires(po, self.common, witness)
         return Circuit(
             common=self.common,
             constants_sigmas_values=po.constants_sigmas_values,
@@ -439,7 +463,7 @@ class CircuitData:
             public_inputs=witness.get_targets(po.public_inputs),
             circuit_digest=po.circuit_digest, random_wire=po.random_wire,
             device=self.device, F=self.F, hasher=self.hasher,
-            cache=self.cache)
+            cache=self.cache, lookup_rows=po.lookup_rows)
 
     def prove(self, pw, rng: Optional[Rng] = None,
               timings: Optional[Dict[str, float]] = None):

@@ -4,7 +4,8 @@
 The builder takes the FRI reduction arities from the config's strategy
 (``FriConfig.fri_params``); a loaded circuit brings them in its metadata.
 The presets are the two fields' recursion configs (reference
-circuit_data.rs:102-187): FRI arity 2^4 for Goldilocks, 2^3 for BabyBear.
+circuit_data.rs:102-187): FRI arity 2^4 for Goldilocks, 2^3 for BabyBear;
+and the Goldilocks one with zero knowledge.
 """
 
 from __future__ import annotations
@@ -116,6 +117,13 @@ class CircuitConfig:
         """135 wires, 80 routed, 2 challenges (FRI arity 2^4)."""
         return replace(CircuitConfig._standard_base(arity_bits=4),
                        num_wires=135, num_challenges=2)
+
+    @staticmethod
+    def standard_recursion_zk_config_gl() -> "CircuitConfig":
+        """``standard_recursion_config_gl()`` with zero knowledge: blinding
+        rows and salted commitments (reference circuit_data.rs:172-177)."""
+        return replace(CircuitConfig.standard_recursion_config_gl(),
+                       zero_knowledge=True)
 
     @staticmethod
     def recursion_config_bb_narrow() -> "CircuitConfig":

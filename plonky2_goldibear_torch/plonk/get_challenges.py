@@ -15,9 +15,6 @@ from .proof import ProofWithPublicInputs
 def get_challenges(proof_with_pis: ProofWithPublicInputs,
                    public_inputs_hash: List[int], circuit_digest: List[int],
                    common, hasher) -> Dict:
-    if common.num_lookup_polys:
-        raise NotImplementedError("lookup challenges are not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
     nch = common.config.num_challenges
     proof = proof_with_pis.proof
     fri = proof.opening_proof
@@ -28,6 +25,12 @@ def get_challenges(proof_with_pis: ProofWithPublicInputs,
     ch.observe_cap(proof.wires_cap)
     plonk_betas = ch.get_n_challenges(nch)
     plonk_gammas = ch.get_n_challenges(nch)
+    # a lookup circuit's deltas: the betas, the gammas, then 2 * nch more
+    # (get_challenges.rs:49-76)
+    plonk_deltas = []
+    if common.num_lookup_polys:
+        plonk_deltas = plonk_betas + plonk_gammas + ch.get_n_challenges(
+            2 * nch)
     ch.observe_cap(proof.plonk_zs_partial_products_cap)
     plonk_alphas = ch.get_n_challenges(nch)
     ch.observe_cap(proof.quotient_polys_cap)
@@ -52,7 +55,7 @@ def get_challenges(proof_with_pis: ProofWithPublicInputs,
     return {
         "plonk_betas": plonk_betas,
         "plonk_gammas": plonk_gammas,
-        "plonk_deltas": [],
+        "plonk_deltas": plonk_deltas,
         "plonk_alphas": plonk_alphas,
         "plonk_zeta": plonk_zeta,
         "fri_alpha": fri_alpha,

@@ -1,10 +1,14 @@
 """The PLONK prover, sync transcript (reference plonky2/src/plonk/prover.rs:
 136-926; the JAX package's ``plonk/prover.py:_internal_prove``).
 
-Phases: wire commitment, partial products and Z, their commitment, the
-quotient over the whole quotient domain, its commitment, the openings at
-zeta and g*zeta, then FRI.  Fiat-Shamir runs on the host between phases;
-every batched phase runs on the circuit's device.  ``prove`` returns the
+Phases: wire commitment, partial products and Z (and a lookup circuit's
+lookup polynomials, ``lookup_polys``), their commitment, the quotient over
+the whole quotient domain, its commitment, the openings at zeta and
+g*zeta, then FRI.  Fiat-Shamir runs on the host between phases; every
+batched phase runs on the circuit's device.  A zero-knowledge circuit's
+wires, Z/partial-product and quotient commitments are salted from the
+prover's rng (``fri/oracle.py``), after witness generation's draws and
+before a retry's.  ``prove`` returns the
 proof and fills ``timings`` (seconds per phase, each ended by a device
 synchronise) when a dict is passed.  The field module ``F`` (``gl`` or
 ``bb``), its extension ``E`` and the hasher (Poseidon-GL or Poseidon2-BB)
@@ -26,6 +30,8 @@ from ..field import host
 from ..fri import prover as fri_prover
 from ..fri.oracle import PolynomialBatch
 from ..hash.challenger import Challenger
+from ..gates.lookup_gates import LookupGate, LookupTableGate
+from ..iop import target as tgt
 from ..iop.generator import Rng, rand_field_element
 from . import vanishing
 from .proof import OpeningSet, Proof, ProofWithPublicInputs
@@ -61,25 +67,234 @@ def prove(circuit, device=None, timings: Optional[Dict[str, float]] = None,
     ``NonRandomRng`` for the reference's deterministic draws, else a numpy
     generator, fresh from the OS when none is given), and the proof
     retried (reference prover.rs:136-230, the anti-#456 loop); the
-    circuit's own wires stay as they were."""
+    circuit's own wires stay as they were.  A zero-knowledge circuit's
+    salts are drawn from the same rng."""
     dev = devmod.resolve(device)
     if dev != circuit.device:
         raise ValueError(f"circuit was loaded on {circuit.device}, "
                          f"not {dev}")
+    if rng is None:
+        rng = np.random.default_rng()
     wires = WitnessTransfer(circuit.F, circuit.wires)
     for retry in range(MAX_PERM_ARG_RETRIES):
         if retry:
             assert circuit.random_wire is not None, \
                 "perm-arg failure with no random wire"
-            if rng is None:
-                rng = np.random.default_rng()
             row, col = circuit.random_wire
             wires.set(row, col, rand_field_element(circuit.F.P, rng))
         try:
-            return _internal_prove(circuit, wires.device_values(), timings)
+            return _internal_prove(circuit, wires.device_values(), timings,
+                                   rng)
         except InvZeroPermArg:
             continue
     raise InvZeroPermArg("too many permutation argument failures")
+
+
+# -- lookups (reference prover.rs:64-134, 555-674) --------------------------
+
+
+def set_lookup_wires(prover_only, common, witness) -> None:
+    """Each table entry's multiplicity, and the unused slots of a table's
+    last LookupGate row filled with its first entry (reference
+    prover.rs:64-134), in the partition witness."""
+    num_lu = LookupGate.num_slots_of(common.config)
+    num_lut = LookupTableGate.num_slots_of(common.config)
+    for lut_index, (_, last_lut, first_lut) in enumerate(
+            prover_only.lookup_rows):
+        lut = common.luts[lut_index]
+        lookups = prover_only.lut_to_lookups[lut_index]
+        multiplicities = [0] * len(lut)
+        value_to_idx = {inp: i for i, (inp, _) in enumerate(lut)}
+        for inp_t, _ in lookups:
+            multiplicities[value_to_idx[witness.get_target(inp_t)]] += 1
+        remaining = (num_lu - len(lookups) % num_lu) % num_lu
+        first_inp, first_out = lut[0]
+        for slot in range(num_lu - remaining, num_lu):
+            witness.set_target(tgt.wire(
+                last_lut - 1, LookupGate.wire_ith_looking_inp(slot)),
+                first_inp)
+            witness.set_target(tgt.wire(
+                last_lut - 1, LookupGate.wire_ith_looking_out(slot)),
+                first_out)
+            multiplicities[0] += 1
+        for entry, mult in enumerate(multiplicities):
+            witness.set_target(tgt.wire(
+                first_lut - entry // num_lut,
+                LookupTableGate.wire_ith_multiplicity(entry % num_lut)), mult)
+
+
+def _lookup_shape(common):
+    """(looking slots, their group size, partial-sum polys, table slots,
+    their group size)."""
+    num_lu = LookupGate.num_slots_of(common.config)
+    lu_degree = common.config.max_quotient_degree_factor - 1
+    num_partial = -(-num_lu // lu_degree)
+    num_lut = LookupTableGate.num_slots_of(common.config)
+    return (num_lu, lu_degree, num_partial, num_lut,
+            -(-num_lut // num_partial))
+
+
+def compute_lookup_polys_host(common, lookup_rows, witness: np.ndarray,
+                              deltas4) -> List[List[int]]:
+    """The scalar reference of ``compute_lookup_polys`` (the JAX package's
+    ``compute_lookup_polys_host``, reference prover.rs:555-674), one python
+    int operation at a time: the running sum ``re`` and the partial sums
+    of each table section, rows taken backwards (they are upside down).
+    ``witness`` (num_wires, degree) canonical ints; for tests."""
+    p = common.spec.p
+    degree = common.degree
+    num_lu, lu_degree, num_partial, num_lut, lut_degree = \
+        _lookup_shape(common)
+    d_a, d_b, d_alpha, d_delta = (int(d) % p for d in deltas4)
+    polys = [[0] * degree for _ in range(num_partial + 1)]
+    wv = witness
+
+    def col(w, row):
+        return int(wv[w, row])
+
+    for last_lu, last_lut, first_lut in lookup_rows:
+        for row in range(first_lut, last_lut - 1, -1):
+            inv = host.batch_inv([
+                (d_alpha - col(LookupTableGate.wire_ith_looked_inp(s), row)
+                 - d_a * col(LookupTableGate.wire_ith_looked_out(s), row)) % p
+                for s in range(num_lut)], p)
+            new_re = polys[0][row + 1] if row + 1 < degree else 0
+            for s in range(num_lut):
+                new_re = (new_re * d_delta
+                          + col(LookupTableGate.wire_ith_looked_inp(s), row)
+                          + d_b * col(LookupTableGate.wire_ith_looked_out(s),
+                                      row)) % p
+            polys[0][row] = new_re
+            for j in range(num_partial):
+                acc = polys[j][row] if j else (
+                    polys[num_partial][row + 1] if row + 1 < degree else 0)
+                for s in range(j * lut_degree,
+                               min((j + 1) * lut_degree, num_lut)):
+                    acc = (acc + col(LookupTableGate.wire_ith_multiplicity(s),
+                                     row) * inv[s]) % p
+                polys[j + 1][row] = acc
+        for row in range(last_lut - 1, last_lu - 1, -1):
+            inv = host.batch_inv([
+                (d_alpha - col(LookupGate.wire_ith_looking_inp(s), row)
+                 - d_a * col(LookupGate.wire_ith_looking_out(s), row)) % p
+                for s in range(num_lu)], p)
+            for j in range(num_partial):
+                prev = polys[j][row] if j else polys[num_partial][row + 1]
+                polys[j + 1][row] = (prev - sum(inv[j * lu_degree:(
+                    j + 1) * lu_degree])) % p
+    return polys
+
+
+def _group_sums(F, vals: torch.Tensor, groups: int, size: int
+                ) -> torch.Tensor:
+    """(..., S) -> (..., groups): the sums of consecutive slot groups of
+    ``size`` (the last short or empty)."""
+    pad = groups * size - vals.shape[-1]
+    if pad > 0:
+        vals = torch.cat([vals, F.zeros(vals.shape[:-1] + (pad,),
+                                        vals.device)], dim=-1)
+    vals = vals[..., :groups * size]
+    return F.batch_sum(vals.reshape(vals.shape[:-1] + (groups, size)),
+                       axis=-1)
+
+
+def _prefix_sum(F, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis (log-depth scan)."""
+    n, k = x.shape[-1], 1
+    while k < n:
+        x = torch.cat([x[..., :k], F.add(x[..., k:], x[..., :n - k])],
+                      dim=-1)
+        k *= 2
+    return x
+
+
+def _affine_scan(F, mult: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x_k = a * x_{k-1} + b_k from x_{-1} = 0 along the last axis of b,
+    ``mult`` holding a broadcast to b's shape (a log-depth scan of the
+    affine maps)."""
+    n, k = b.shape[-1], 1
+    while k < n:
+        b = torch.cat([b[..., :k], F.add(F.mul(b[..., :n - k],
+                                                mult[..., k:]),
+                                          b[..., k:])], dim=-1)
+        mult = torch.cat([mult[..., :k], F.mul(mult[..., k:],
+                                               mult[..., :n - k])], dim=-1)
+        k *= 2
+    return b
+
+
+def compute_lookup_polys(F, common, lookup_rows, wires: torch.Tensor,
+                         deltas) -> torch.Tensor:
+    """(challenges * (1 + partial sums), degree): for each challenge's
+    four deltas in ``deltas`` (host ints, four a challenge), the running
+    sum and the partial sums on whole columns (the JAX package's
+    ``compute_lookup_polys_batched``).  All challenges at once, per table
+    section: one inversion of every denominator, the running sum as an
+    affine scan (its per-row step is Horner in delta over the row's
+    slots), the partial sums as one prefix sum over (row, group) in row
+    order, rows taken backwards.  Equal to ``compute_lookup_polys_host``
+    of each challenge."""
+    p = common.spec.p
+    dev = wires.device
+    n = common.degree
+    num_lu, lu_degree, num_partial, num_lut, lut_degree = \
+        _lookup_shape(common)
+    ds = [[int(d) % p for d in deltas[i:i + 4]]
+          for i in range(0, len(deltas), 4)]
+    nc = len(ds)
+
+    def per_challenge(vals):
+        return F.from_ints(vals, dev).reshape(nc, 1, 1)
+
+    da, db, dal = (per_challenge([d[i] for d in ds]) for i in range(3))
+    # Horner over a row's slots: sum_s combo_s delta^(S-1-s), and the
+    # step's multiplier delta^S
+    horner = F.from_ints([[pow(d[3], num_lut - 1 - s, p)
+                           for s in range(num_lut)] for d in ds], dev)
+    step_mult = per_challenge([pow(d[3], num_lut, p) for d in ds])[:, 0]
+    polys = F.zeros((nc, num_partial + 1, n), dev)
+
+    def cols(ws, rows):
+        return wires[ws][:, rows].t()[None]
+
+    lut_inp = [LookupTableGate.wire_ith_looked_inp(s) for s in range(num_lut)]
+    lut_out = [LookupTableGate.wire_ith_looked_out(s) for s in range(num_lut)]
+    lut_mul = [LookupTableGate.wire_ith_multiplicity(s)
+               for s in range(num_lut)]
+    lu_inp = [LookupGate.wire_ith_looking_inp(s) for s in range(num_lu)]
+    lu_out = [LookupGate.wire_ith_looking_out(s) for s in range(num_lu)]
+    for last_lu, last_lut, first_lut in lookup_rows:
+        rows_lut = torch.arange(first_lut, last_lut - 1, -1, device=dev)
+        rows_lu = torch.arange(last_lut - 1, last_lu - 1, -1, device=dev)
+        r1, r2 = rows_lut.shape[0], rows_lu.shape[0]
+        seeds = polys[:, :, first_lut + 1].clone() if first_lut + 1 < n \
+            else F.zeros((nc, num_partial + 1), dev)
+        inp, out = cols(lut_inp, rows_lut), cols(lut_out, rows_lut)
+        steps = F.batch_sum(F.mul(F.add(inp, F.mul(out, db)),
+                                  horner[:, None]), axis=2)   # (nc, r1)
+        steps = torch.cat([F.add(F.mul(step_mult, seeds[:, :1]),
+                                 steps[:, :1]), steps[:, 1:]], dim=1)
+        polys[:, 0, rows_lut] = _affine_scan(
+            F, step_mult.expand(nc, r1), steps)
+        # every denominator of the section inverted at once
+        dens = [F.sub(dal, F.add(inp, F.mul(out, da)))]
+        if r2:
+            dens.append(F.sub(dal, F.add(cols(lu_inp, rows_lu),
+                                         F.mul(cols(lu_out, rows_lu), da))))
+        inv = F.inv(torch.cat([d.reshape(nc, -1) for d in dens], dim=1))
+        lut_inv = inv[:, :r1 * num_lut].reshape(nc, r1, num_lut)
+        inc = [_group_sums(F, F.mul(cols(lut_mul, rows_lut), lut_inv),
+                           num_partial, lut_degree)]
+        if r2:
+            inc.append(F.neg(_group_sums(
+                F, inv[:, r1 * num_lut:].reshape(nc, r2, num_lu),
+                num_partial, lu_degree)))
+        flat = torch.cat([x.reshape(nc, -1) for x in inc], dim=1)
+        sums = F.add(_prefix_sum(F, flat), seeds[:, num_partial:]).reshape(
+            nc, -1, num_partial)
+        polys[:, 1:, rows_lut] = sums[:, :r1].transpose(1, 2)
+        polys[:, 1:, rows_lu] = sums[:, r1:].transpose(1, 2)
+    return polys.reshape(nc * (num_partial + 1), n)
 
 
 def _scalars(F, values: List[int], device) -> List[torch.Tensor]:
@@ -158,10 +373,12 @@ def _quotient_data(circuit) -> _QuotientData:
 
 
 def quotient_chunks(circuit, qd: _QuotientData, cs_lde, wires_lde,
-                    zs_pp_lde, pi_hash, betas, gammas, alphas):
+                    zs_pp_lde, pi_hash, betas, gammas, alphas, deltas=(),
+                    lut_re_evals=()):
     """Quotient polynomial chunks (nch * qdf, n): the vanishing polynomial
     over the quotient domain, divided by Z_H, coset-iFFT'd and split
-    (reference prover.rs:690-926)."""
+    (reference prover.rs:690-926); a lookup circuit's lookup polys follow
+    the Z/partial-product polys in their oracle."""
     common = circuit.common
     F = circuit.F
     cs = cs_lde[:, ::qd.step]
@@ -172,10 +389,13 @@ def quotient_chunks(circuit, qd: _QuotientData, cs_lde, wires_lde,
     s0, s1 = common.sigmas_range()
     z0, z1 = common.zs_range()
     pp0, pp1 = common.partial_products_range()
+    lk0 = common.num_zs_partial_products_polys()
+    lk1 = lk0 + common.num_all_lookup_polys()
     values = vanishing.eval_vanishing_poly(
         F, common, qd.shifted_xs, qd.l_0, wires, cs[c0:c1], pi_hash,
         zs_pp[z0:z1], zs_pp_next[z0:z1], zs_pp[pp0:pp1], cs[s0:s1],
-        betas, gammas, alphas)
+        betas, gammas, alphas, deltas, zs_pp[lk0:lk1], zs_pp_next[lk0:lk1],
+        lut_re_evals)
     n = common.degree
     # the challenges' quotients in one batched coset iFFT
     q_values = F.mul(torch.stack([v.expand(qd.m) for v in values]),
@@ -230,15 +450,18 @@ def opening_set(F, E, common, zeta, oracles) -> OpeningSet:
     s0, s1 = common.sigmas_range()
     z0, z1 = common.zs_range()
     pp0, pp1 = common.partial_products_range()
+    lk0 = common.num_zs_partial_products_polys()
     return OpeningSet(
         constants=cs_eval[c0:c1], plonk_sigmas=cs_eval[s0:s1],
         wires=wires_eval, plonk_zs=zs_pp_eval[z0:z1],
         plonk_zs_next=zs_pp_next_eval[z0:z1],
         partial_products=zs_pp_eval[pp0:pp1],
-        quotient_polys=quotient_eval)
+        quotient_polys=quotient_eval, lookup_zs=zs_pp_eval[lk0:],
+        lookup_zs_next=zs_pp_next_eval[lk0:])
 
 
-def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
+def _internal_prove(circuit, wires_values, timings,
+                    rng: Rng) -> ProofWithPublicInputs:
     common = circuit.common
     config = common.config
     dev = circuit.device
@@ -248,10 +471,12 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
     nch = config.num_challenges
     qd = _quotient_data(circuit)
     public_inputs_hash = hasher.hash_no_pad_host(circuit.public_inputs)
+    # the blinded oracles' salts (reference plonk_common.rs:24-40)
+    salt_rng = rng if config.zero_knowledge else None
 
     def commit_values(values):
         return PolynomialBatch.from_values(values, rate_bits, cap_height, F,
-                                           hasher)
+                                           hasher, salt_rng)
 
     with phase(timings, "wires_commit", dev):
         wires_commitment = commit_values(wires_values)
@@ -263,6 +488,11 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
     challenger.observe_cap(wires_cap)
     betas = challenger.get_n_challenges(nch)
     gammas = challenger.get_n_challenges(nch)
+    deltas, lut_re_evals = [], []
+    if common.num_lookup_polys:
+        # betas and gammas are the first two deltas a challenge
+        # (reference prover.rs:283-299)
+        deltas = betas + gammas + challenger.get_n_challenges(2 * nch)
 
     with phase(timings, "partial_products", dev):
         zs_pp, any_zero = partial_products(
@@ -271,6 +501,13 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
             _scalars(F, gammas, dev))
         if bool(any_zero):
             raise InvZeroPermArg()
+
+    if common.num_lookup_polys:
+        with phase(timings, "lookup_polys", dev):
+            zs_pp = torch.cat([zs_pp, compute_lookup_polys(
+                F, common, circuit.lookup_rows, wires_values, deltas)])
+        lut_re_evals = [_scalars(F, evs, dev) for evs in
+                        vanishing.get_lut_re_evals(common, deltas)]
 
     with phase(timings, "zs_pp_commit", dev):
         zs_pp_commitment = commit_values(zs_pp)
@@ -283,11 +520,12 @@ def _internal_prove(circuit, wires_values, timings) -> ProofWithPublicInputs:
             circuit, qd, circuit.constants_sigmas_commitment.lde,
             wires_commitment.lde, zs_pp_commitment.lde,
             _scalars(F, public_inputs_hash, dev), _scalars(F, betas, dev),
-            _scalars(F, gammas, dev), _scalars(F, alphas, dev))
+            _scalars(F, gammas, dev), _scalars(F, alphas, dev),
+            _scalars(F, deltas, dev), lut_re_evals)
 
     with phase(timings, "quotient_commit", dev):
         quotient_commitment = PolynomialBatch(chunks, rate_bits, cap_height,
-                                              F, hasher)
+                                              F, hasher, salt_rng)
         quotient_cap = quotient_commitment.cap_host()
     challenger.observe_cap(quotient_cap)
 

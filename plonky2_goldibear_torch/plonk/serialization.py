@@ -10,11 +10,12 @@ reference's recursive-verifier proof in ``tests/data/``.  Field elements
 are 8-byte little-endian words; digests are 32 bytes (Goldilocks: 4 u64,
 BabyBear: 8 u32).
 
-Not read yet, each raising ``NotImplementedError`` with its ROADMAP
-Queue 1 item: the gates of tags 5 and 17-19 (Exponentiation, AddMany,
-ApplyMat4, Poseidon2InternalPermutation; items 4b and 6), the lookup gates
-6-7 and lookup tables (item 5), byte digests (the Keccak config, item 7).
-The writers are item 11.
+A lookup circuit's common data carries its tables; the lookup gates (tags
+6 and 7) name theirs by index and hash.  Not read yet, each raising
+``NotImplementedError`` with its ROADMAP Queue 1 item: the gates of tags 5
+and 17-19 (Exponentiation, AddMany, ApplyMat4,
+Poseidon2InternalPermutation; items 4b and 6), byte digests (the Keccak
+config, item 7).  The writers are item 11.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..gates.basic_gates import (ArithmeticGate, ConstantGate, NoopGate,
                                  PublicInputGate)
 from ..gates.coset_interpolation import CosetInterpolationGate
 from ..gates.extension_gates import ArithmeticExtensionGate, MulExtensionGate
+from ..gates.lookup_gates import LookupGate, LookupTableGate
 from ..gates.poseidon import PoseidonGate
 from ..gates.poseidon2_bb_gate import Poseidon2BabyBearGate
 from ..gates.poseidon_mds import PoseidonMdsGate
@@ -176,13 +178,25 @@ def read_selectors_info(buf: Buffer) -> SelectorsInfo:
 # -- gates (the DefaultGateSerializer's tags, reference
 #    gate_serialization.rs:143-166) ------------------------------------------
 
-_UNPORTED_TAGS = {5: ("ExponentiationGate", "4b"), 6: ("LookupGate", 5),
-                  7: ("LookupTableGate", 5), 17: ("AddManyGate", "4b"),
+_UNPORTED_TAGS = {5: ("ExponentiationGate", "4b"), 17: ("AddManyGate", "4b"),
                   18: ("ApplyMat4Gate", 6),
                   19: ("Poseidon2InternalPermutationGate", 6)}
 
 
-def _read_gate(buf: Buffer, spec: host.FieldSpec, config: CircuitConfig):
+def _read_lookup_gate(buf: Buffer, make, luts):
+    """A lookup gate: its fields, then the table's index and hash."""
+    fields = [buf.read_usize() for _ in range(make.__code__.co_argcount - 1)]
+    lut_index = buf.read_usize()
+    if lut_index >= len(luts):
+        raise ValueError(f"lookup table {lut_index} of {len(luts)}")
+    gate = make(luts[lut_index], *fields)
+    if gate.lut_hash != buf.read_exact(32):
+        raise ValueError("lookup table hash mismatch")
+    return gate
+
+
+def _read_gate(buf: Buffer, spec: host.FieldSpec, config: CircuitConfig,
+               luts=()):
     tag = buf.read_u32()
     D = spec.ext_degree
     if tag == 0:
@@ -198,6 +212,13 @@ def _read_gate(buf: Buffer, spec: host.FieldSpec, config: CircuitConfig):
         degree = buf.read_usize()
         weights = buf.read_field_vec(buf.read_usize(), spec)
         return CosetInterpolationGate(subgroup_bits, degree, weights, spec)
+    if tag == 6:
+        return _read_lookup_gate(
+            buf, lambda lut, slots: LookupGate(slots, lut), luts)
+    if tag == 7:
+        return _read_lookup_gate(
+            buf, lambda lut, slots, last_row: LookupTableGate(
+                slots, lut, last_row), luts)
     if tag == 8:
         return MulExtensionGate(buf.read_usize(), D)
     if tag == 9:
@@ -243,9 +264,11 @@ def read_common_circuit_data(data: bytes,
     num_partial_products = buf.read_usize()
     num_lookup_polys = buf.read_usize()
     num_lookup_selectors = buf.read_usize()
-    if buf.read_usize():
-        raise _not_ported("lookup tables", 5)
-    gates = [_read_gate(buf, spec, config) for _ in range(buf.read_usize())]
+    luts = [tuple((buf.read_u16(), buf.read_u16())
+                  for _ in range(buf.read_usize()))
+            for _ in range(buf.read_usize())]
+    gates = [_read_gate(buf, spec, config, luts)
+             for _ in range(buf.read_usize())]
     buf.expect_end()
     return CommonCircuitData(
         config=config, spec=spec, fri_params=fri_params, gates=gates,
@@ -255,7 +278,7 @@ def read_common_circuit_data(data: bytes,
         num_constants=num_constants, num_public_inputs=num_public_inputs,
         k_is=k_is, num_partial_products=num_partial_products,
         num_lookup_polys=num_lookup_polys,
-        num_lookup_selectors=num_lookup_selectors)
+        num_lookup_selectors=num_lookup_selectors, luts=luts)
 
 
 def read_verifier_only_circuit_data(data: bytes,

@@ -16,7 +16,12 @@ generic form).  ``HostExtAlgebra`` evaluates it on the host with the
 challenges as python ints (``plonk/verifier.py``, with
 ``eval_l_0_host``); ``CircuitExtAlgebra`` builds the same evaluation into
 a circuit, the challenges as targets (``recursion/recursive_verifier.py``).
-No lookup terms: lookup circuits are not ported yet.
+
+The logUp terms of a lookup circuit (``check_lookup_constraints_a``) are
+written once over an algebra too: the verifier and the circuit call them
+at zeta, and the prover over ``DeviceBaseAlgebra`` on the whole quotient
+domain, whose ``product``, ``leave_one_out_sum``, ``add_scaled`` and
+``horner`` run on the stacked terms of a slot group.
 """
 
 from __future__ import annotations
@@ -27,7 +32,11 @@ import torch
 
 from ..field import host
 from ..gates.base import (DeviceBaseAlgebra, EvaluationVars, compute_filter,
-                          eval_filtered)
+                          eval_filtered, reduce_with_powers_stacked)
+from ..gates.lookup_gates import LookupGate, LookupTableGate
+from ..gates.selectors import (LOOKUP_SEL_INIT_SRE, LOOKUP_SEL_LAST_LDC,
+                               LOOKUP_SEL_START_END, LOOKUP_SEL_TRANS_LDC,
+                               LOOKUP_SEL_TRANS_SRE)
 
 
 def gate_constraints_device(F, gate, wires: torch.Tensor,
@@ -90,23 +99,19 @@ def check_partial_products(F, numerators, denominators, partials, z_x,
     return F.sub(F.mul(prev, num), F.mul(nxt, den))
 
 
-def reduce_with_powers(F, terms: torch.Tensor, alpha) -> torch.Tensor:
-    """sum_i alpha^i terms[i] over a (k, m) stack (reference
-    plonk_common.rs:122-135)."""
-    k = terms.shape[0]
-    pows = torch.cat([F.ones((1,), terms.device),
-                      F.cumprod(alpha.expand(k - 1), axis=0)])
-    return F.batch_sum(F.mul(terms, pows[:, None]), axis=0)
-
-
 def eval_vanishing_poly(F, common, x, l_0_x, wires, constants, pi_hash,
                         local_zs, next_zs, partial_products, s_sigmas,
-                        betas, gammas, alphas) -> List[torch.Tensor]:
+                        betas, gammas, alphas, deltas=(), local_lookup_zs=None,
+                        next_lookup_zs=None, lut_re_evals=()
+                        ) -> List[torch.Tensor]:
     """One combined (m,) value per alpha challenge (reference
     vanishing_poly.rs:57-180): the z(1) terms, the partial-product checks,
-    then the gate constraints, combined with powers of alpha.  ``wires``
-    (num_wires, m), ``constants`` and ``s_sigmas`` (k, m), ``local_zs`` /
-    ``next_zs`` (nch, m), ``partial_products`` (nch * num_pp, m)."""
+    a lookup circuit's logUp terms, then the gate constraints, combined
+    with powers of alpha.  ``wires`` (num_wires, m), ``constants`` and
+    ``s_sigmas`` (k, m), ``local_zs`` / ``next_zs`` (nch, m),
+    ``partial_products`` (nch * num_pp, m), ``local_lookup_zs`` /
+    ``next_lookup_zs`` (nch * num_lookup_polys, m); ``deltas`` four a
+    challenge, ``lut_re_evals`` one list of table values a challenge."""
     max_degree = common.quotient_degree_factor
     num_prods = common.num_partial_products
     num_routed = common.config.num_routed_wires
@@ -130,10 +135,122 @@ def eval_vanishing_poly(F, common, x, l_0_x, wires, constants, pi_hash,
             partial_products[i * num_prods:(i + 1) * num_prods],
             z_x, z_gx, max_degree))
 
+    lookup_terms = []
+    if common.num_lookup_polys:
+        A = DeviceBaseAlgebra(F, x.device)
+        npoly = common.num_lookup_polys
+        ns = common.selectors_info.num_selectors
+        selectors = constants[ns:ns + common.num_lookup_selectors].unbind(0)
+        lw = wires.unbind(0)
+        for i in range(common.config.num_challenges):
+            lookup_terms += [t.expand(m) for t in check_lookup_constraints_a(
+                A, common, lw,
+                local_lookup_zs[npoly * i:npoly * (i + 1)].unbind(0),
+                next_lookup_zs[npoly * i:npoly * (i + 1)].unbind(0),
+                selectors, deltas[4 * i:4 * (i + 1)], lut_re_evals[i])]
     terms = torch.cat([torch.stack(z_1_terms)] + pp_terms
+                      + ([torch.stack(lookup_terms)] if lookup_terms else [])
                       + [constraint_terms])
-    return [reduce_with_powers(F, terms, alphas[i])
+    return [reduce_with_powers_stacked(F, terms, alphas[i])
             for i in range(common.config.num_challenges)]
+
+
+# -- the lookup terms (reference vanishing_poly.rs:31-52, 370-535) ----------
+
+
+def get_lut_poly_coeffs(common, lut_index: int, delta_b: int) -> List[int]:
+    """The table polynomial's coefficients: inp + B * out a entry, zero
+    padded to the table rows' slots, reversed (vanishing_poly.rs:31-52)."""
+    p = common.spec.p
+    lut = common.luts[lut_index]
+    slots = LookupTableGate.num_slots_of(common.config)
+    degree = slots * -(-len(lut) // slots)
+    coeffs = [(inp + delta_b * out) % p for inp, out in lut]
+    coeffs += [0] * (degree - len(coeffs))
+    coeffs.reverse()
+    return coeffs
+
+
+def get_lut_re_evals(common, deltas: Sequence[int]) -> List[List[int]]:
+    """A challenge's table polynomial of each table at its delta, on the
+    host: the value the running sum ends at (reference prover.rs:757-784);
+    ``deltas`` four a challenge (A, B, alpha, delta)."""
+    p = common.spec.p
+    out = []
+    for i in range(common.config.num_challenges):
+        d_b, d_delta = deltas[4 * i + 1], deltas[4 * i + 3]
+        evals = []
+        for li in range(len(common.luts)):
+            acc = 0
+            for c in reversed(get_lut_poly_coeffs(common, li, d_b)):
+                acc = (acc * d_delta + c) % p
+            evals.append(acc)
+        out.append(evals)
+    return out
+
+
+def check_lookup_constraints_a(A, common, lw: Sequence, local_lookup_zs,
+                               next_lookup_zs, lookup_selectors, deltas4,
+                               lut_re_evals) -> List:
+    """The logUp constraints of one challenge (reference
+    vanishing_poly.rs:370-535): the running sum ``re`` of the table
+    entries reaches each table's polynomial at delta, and the partial sums
+    of multiplicity / (alpha - looked) less 1 / (alpha - looking) close to
+    zero, group by group.  ``lw`` the local wires, ``deltas4`` (A, B,
+    alpha, delta) scalars, ``lut_re_evals`` one scalar a table."""
+    num_lu = LookupGate.num_slots_of(common.config)
+    num_lut = LookupTableGate.num_slots_of(common.config)
+    lu_degree = common.quotient_degree_factor - 1
+    num_sldc = len(local_lookup_zs) - 1
+    lut_degree = -(-num_lut // num_sldc)
+    delta_a, delta_b, delta_alpha, delta_delta = deltas4
+    z_re, next_z_re = local_lookup_zs[0], next_lookup_zs[0]
+    z_x = list(local_lookup_zs[1:])
+    z_gx = list(next_lookup_zs[1:])
+    sel = lookup_selectors
+
+    lut_ins = [lw[LookupTableGate.wire_ith_looked_inp(s)]
+               for s in range(num_lut)]
+    lut_outs = [lw[LookupTableGate.wire_ith_looked_out(s)]
+                for s in range(num_lut)]
+    looked = A.add_scaled(lut_ins, lut_outs, delta_a)
+    looking = A.add_scaled(
+        [lw[LookupGate.wire_ith_looking_inp(s)] for s in range(num_lu)],
+        [lw[LookupGate.wire_ith_looking_out(s)] for s in range(num_lu)],
+        delta_a)
+    combos = A.add_scaled(lut_ins, lut_outs, delta_b)
+    alpha = A.lift_scalar(delta_alpha)
+    m_looked = [A.sub(alpha, c) for c in looked]
+    m_looking = [A.sub(alpha, c) for c in looking]
+
+    out = [A.mul(sel[LOOKUP_SEL_LAST_LDC], z_x[num_sldc - 1]),
+           A.mul(sel[LOOKUP_SEL_INIT_SRE], z_x[0]),
+           A.mul(sel[LOOKUP_SEL_INIT_SRE], z_re)]
+    for r in range(LOOKUP_SEL_START_END, common.num_lookup_selectors):
+        out.append(A.mul(sel[r], A.sub(z_re, A.lift_scalar(
+            lut_re_evals[r - LOOKUP_SEL_START_END]))))
+    # the running sum's row step, Horner in delta
+    cur_sum = A.horner(list(reversed(combos)) + [next_z_re], delta_delta)
+    out.append(A.mul(sel[LOOKUP_SEL_TRANS_SRE], A.sub(z_re, cur_sum)))
+    for poly in range(num_sldc):
+        lut_rng = range(poly * lut_degree,
+                        min((poly + 1) * lut_degree, num_lut))
+        lu_rng = range(poly * lu_degree, min((poly + 1) * lu_degree, num_lu))
+        lut_prod = A.product([m_looked[i] for i in lut_rng])
+        lu_prod = A.product([m_looking[i] for i in lu_rng])
+        lu_sum_prods = A.leave_one_out_sum([m_looking[i] for i in lu_rng])
+        lut_sum_prods_mul = A.leave_one_out_sum(
+            [m_looked[i] for i in lut_rng],
+            weights=[lw[LookupTableGate.wire_ith_multiplicity(i)]
+                     for i in lut_rng])
+        prev = z_gx[num_sldc - 1] if poly == 0 else z_x[poly - 1]
+        sum_trans = A.sub(A.mul(lut_prod, A.sub(z_x[poly], prev)),
+                          lut_sum_prods_mul)
+        out.append(A.mul(sel[LOOKUP_SEL_TRANS_SRE], sum_trans))
+        ldc_trans = A.add(A.mul(lu_prod, A.sub(z_x[poly], prev)),
+                          lu_sum_prods)
+        out.append(A.mul(sel[LOOKUP_SEL_TRANS_LDC], ldc_trans))
+    return out
 
 
 # -- at one point, over an algebra (the verifier) ---------------------------
@@ -174,23 +291,39 @@ def eval_vanishing_poly_a(A, common, x, l_0_x, vars: EvaluationVars,
                           local_zs: Sequence, next_zs: Sequence,
                           partial_products: Sequence, s_sigmas: Sequence,
                           betas: Sequence[int], gammas: Sequence[int],
-                          alphas: Sequence[int]) -> List:
+                          alphas: Sequence[int], deltas: Sequence = (),
+                          local_lookup_zs: Sequence = (),
+                          next_lookup_zs: Sequence = (),
+                          lut_re_evals: Sequence = ()) -> List:
     """One combined value per alpha (reference vanishing_poly.rs:57-180),
     the terms in ``eval_vanishing_poly``'s order: the z(1) terms, the
-    partial-product checks, the gate constraints.  ``l_0_x`` may be a
-    function, called after the gate constraints: the circuit algebra then
-    emits its gates where the reference does (vanishing_poly.rs:902)."""
+    partial-product checks, the lookup terms, the gate constraints.
+    ``l_0_x`` may be a function, called after the gate constraints: the
+    circuit algebra then emits its gates where the reference does
+    (vanishing_poly.rs:902), a challenge's lookup terms right after its
+    z(1) term."""
     max_degree = common.quotient_degree_factor
     num_prods = common.num_partial_products
     num_routed = common.config.num_routed_wires
+    npoly = common.num_lookup_polys
     constraint_terms = evaluate_gate_constraints_a(A, common, vars)
+    ns = common.selectors_info.num_selectors
+    lookup_selectors = vars.local_constants[
+        ns:ns + common.num_lookup_selectors]
     if callable(l_0_x):
         l_0_x = l_0_x()
     s_ids = [A.k_const_mul(common.k_is[j], x) for j in range(num_routed)]
-    z_1_terms, pp_terms = [], []
+    z_1_terms, pp_terms, lookup_terms = [], [], []
     for i in range(common.config.num_challenges):
         z_x, z_gx = local_zs[i], next_zs[i]
         z_1_terms.append(A.mul_sub(l_0_x, z_x, l_0_x))
+        if npoly:
+            lookup_terms += check_lookup_constraints_a(
+                A, common, vars.local_wires,
+                local_lookup_zs[npoly * i:npoly * (i + 1)],
+                next_lookup_zs[npoly * i:npoly * (i + 1)],
+                lookup_selectors, deltas[4 * i:4 * (i + 1)],
+                lut_re_evals[i])
         gamma = A.lift_scalar(gammas[i])
         numerators, denominators = [], []
         for j in range(num_routed):
@@ -202,7 +335,7 @@ def eval_vanishing_poly_a(A, common, x, l_0_x, vars: EvaluationVars,
             A, numerators, denominators,
             partial_products[i * num_prods:(i + 1) * num_prods],
             z_x, z_gx, max_degree)
-    terms = z_1_terms + pp_terms + constraint_terms
+    terms = z_1_terms + pp_terms + lookup_terms + constraint_terms
     return [A.reduce_with_powers(terms, alphas[i])
             for i in range(common.config.num_challenges)]
 

@@ -51,7 +51,10 @@ def verify(proof_with_pis: ProofWithPublicInputs, verifier_data,
     vanishing_polys_zeta = vanishing.eval_vanishing_poly_a(
         A, common, zeta, l_0_zeta, vars, o.plonk_zs, o.plonk_zs_next,
         o.partial_products, o.plonk_sigmas, challenges["plonk_betas"],
-        challenges["plonk_gammas"], challenges["plonk_alphas"])
+        challenges["plonk_gammas"], challenges["plonk_alphas"],
+        challenges["plonk_deltas"], o.lookup_zs, o.lookup_zs_next,
+        vanishing.get_lut_re_evals(common, challenges["plonk_deltas"])
+        if common.num_lookup_polys else [])
 
     # t(zeta) from its chunks: sum_k chunk_k zeta^(n k)
     # (reference verifier.rs:93-113)

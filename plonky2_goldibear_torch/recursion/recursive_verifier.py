@@ -10,10 +10,11 @@ the proof has a value): the hash of its public inputs, the
 Fiat-Shamir transcript replayed by a ``RecursiveChallenger``, the
 vanishing polynomial at zeta (the inner gates' ``eval_unfiltered`` and
 ``plonk/vanishing.py:eval_vanishing_poly_a`` over ``CircuitExtAlgebra``),
-the quotient identity, and the FRI verifier.  ``set_proof_with_pis_target``
-and ``set_verifier_data_target`` put an inner proof and its verifier data
-into a partial witness.  Lookup circuits are not ported (ROADMAP Queue 1
-item 5): ``CommonCircuitData`` refuses them.
+the quotient identity, and the FRI verifier.  A lookup inner adds its
+delta challenges, its lookup polys' openings and each table's polynomial
+at delta, evaluated in the circuit (``get_lut_re_evals_circuit``).
+``set_proof_with_pis_target`` and ``set_verifier_data_target`` put an
+inner proof and its verifier data into a partial witness.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..field import host
 from ..fri import recursive_verifier as fric
 from ..gates.base import EvaluationVars
 from ..gates.circuit_algebra import CircuitExtAlgebra
+from ..gates.lookup_gates import LookupTableGate
 from ..plonk import gadgets as gd
 from ..plonk import vanishing
 from ..plonk.circuit_data import VerifierOnlyCircuitData
@@ -58,7 +60,9 @@ def add_virtual_proof_with_pis(b, common) -> ProofWithPublicInputs:
         plonk_zs_next=ext(config.num_challenges),
         partial_products=ext(config.num_challenges
                              * common.num_partial_products),
-        quotient_polys=ext(common.num_quotient_polys()))
+        quotient_polys=ext(common.num_quotient_polys()),
+        lookup_zs=ext(common.num_all_lookup_polys()),
+        lookup_zs_next=ext(common.num_all_lookup_polys()))
     cap_height = config.fri_config.cap_height
     proof = Proof(
         wires_cap=_virtual_cap(b, cap_height),
@@ -93,6 +97,10 @@ def get_challenges_target(b, proof_t: Proof, public_inputs_hash,
     ch.observe_cap(proof_t.wires_cap)
     betas = ch.get_n_challenges(nch)
     gammas = ch.get_n_challenges(nch)
+    # a lookup inner's deltas (get_challenges.rs:49-76)
+    deltas = []
+    if common.num_lookup_polys:
+        deltas = betas + gammas + ch.get_n_challenges(2 * nch)
     ch.observe_cap(proof_t.plonk_zs_partial_products_cap)
     alphas = ch.get_n_challenges(nch)
     ch.observe_cap(proof_t.quotient_polys_cap)
@@ -108,11 +116,42 @@ def get_challenges_target(b, proof_t: Proof, public_inputs_hash,
     fri_pow_response = ch.get_challenge()
     return {
         "plonk_betas": betas, "plonk_gammas": gammas,
-        "plonk_alphas": alphas, "plonk_zeta": zeta,
+        "plonk_deltas": deltas, "plonk_alphas": alphas, "plonk_zeta": zeta,
         "fri_alpha": fri_alpha, "fri_betas": fri_betas,
         "fri_pow_response": fri_pow_response,
         "fri_query_indices": ch.get_n_challenges(
             config.fri_config.num_query_rounds)}
+
+
+def get_lut_re_evals_circuit(b, common, deltas):
+    """Each table's polynomial at a challenge's delta, in the circuit: per
+    challenge, per table, Horner over the entries (inp + B * out) at delta,
+    then times delta^(padding) by square and multiply (reference
+    vanishing_poly.rs:31-52 and its circuit use; the host form is
+    ``vanishing.get_lut_re_evals``)."""
+    slots = LookupTableGate.num_slots_of(common.config)
+    out = []
+    for i in range(common.config.num_challenges):
+        delta_b, delta_d = deltas[4 * i + 1], deltas[4 * i + 3]
+        evals = []
+        for lut in common.luts:
+            acc = b.zero()
+            for inp, out_v in lut:
+                acc = b.mul_add(acc, delta_d, b.add_const(
+                    b.mul_const(int(out_v), delta_b), int(inp)))
+            pad = slots * -(-len(lut) // slots) - len(lut)
+            if pad:
+                dpow, base, e = None, delta_d, pad
+                while e:
+                    if e & 1:
+                        dpow = base if dpow is None else b.mul(dpow, base)
+                    e >>= 1
+                    if e:
+                        base = b.square(base)
+                acc = b.mul(acc, dpow)
+            evals.append(acc)
+        out.append(evals)
+    return out
 
 
 def eval_l_0_circuit(b, n: int, x, x_pow_n):
@@ -146,6 +185,9 @@ def verify_proof(b, proof_with_pis_t: ProofWithPublicInputs,
     # one before anything else (recursive_verifier.rs:66)
     one_ext = b.one_extension()
     zeta_pow_deg = gd.exp_power_of_2_extension(b, zeta, common.degree_bits)
+    deltas = challenges["plonk_deltas"]
+    lut_re_evals = get_lut_re_evals_circuit(b, common, deltas) \
+        if common.num_lookup_polys else []
     vanishing_zeta = vanishing.eval_vanishing_poly_a(
         CircuitExtAlgebra(b), common, zeta,
         # L_0(zeta) is built after the gate constraints
@@ -154,7 +196,8 @@ def verify_proof(b, proof_with_pis_t: ProofWithPublicInputs,
         vars, openings.plonk_zs, openings.plonk_zs_next,
         openings.partial_products, openings.plonk_sigmas,
         challenges["plonk_betas"], challenges["plonk_gammas"],
-        challenges["plonk_alphas"])
+        challenges["plonk_alphas"], deltas, openings.lookup_zs,
+        openings.lookup_zs_next, lut_re_evals)
 
     # vanishing_i(zeta) == Z_H(zeta) * (chunk_i reduced by zeta^n), one
     # ReducingFactorTarget for all (recursive_verifier.rs:107-119)

@@ -487,12 +487,12 @@ def built_retries(built):
         failures, real, seen = len(arrays["values"]), \
             prover._internal_prove, []
 
-        def internal_prove(circuit, wires, timings):
+        def internal_prove(circuit, wires, timings, rng):
             row, col = circuit.random_wire
             seen.append(int(circuit.F.to_ints(wires[col, row:row + 1])[0]))
             if len(seen) <= failures:
                 raise prover.InvZeroPermArg()
-            return real(circuit, wires, timings)
+            return real(circuit, wires, timings, rng)
 
         pw = PartialWitness()
         pw.set_target(x, 3)
@@ -590,18 +590,12 @@ def test_mul_by_one_returns_the_target():
 
 
 def test_unported_features_raise_with_their_item():
-    from dataclasses import replace
-
     cfg = config_of("goldilocks")
     b = CircuitBuilder(cfg)
     x = b.add_virtual_target()
     for call, item in (
             (lambda: b.add_many([x] * 23), "4b"),
-            (lambda: b.add_lookup_table_from_pairs([(0, 1)]), 5),
-            (lambda: b.add_lookup_from_index(x, 0), 5),
             (lambda: b.build(device="cpu", commit_streaming=True), 9),
-            (lambda: CircuitBuilder(replace(cfg, zero_knowledge=True))
-             .build(device="cpu"), 5),
             (lambda: b.permute([x] * 24, hasher=type(
                 "R0", (), {"WIDTH": 24})), 6),
             (lambda: CircuitBuilder(cfg, hasher=object()), 7)):

@@ -110,11 +110,11 @@ def retried():
         real = prover._internal_prove
         seen = []
 
-        def internal_prove(circuit_, wires, timings):
+        def internal_prove(circuit_, wires, timings, rng):
             seen.append(wires)
             if len(seen) <= failures:
                 raise prover.InvZeroPermArg()
-            return real(circuit_, wires, timings)
+            return real(circuit_, wires, timings, rng)
 
         prover._internal_prove = internal_prove
         try:

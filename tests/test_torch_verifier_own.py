@@ -69,11 +69,11 @@ def proved():
         proof = data.prove(pw, rng=NonRandomRng(1))
         real, calls = prover._internal_prove, []
 
-        def internal_prove(circuit, wires, timings):
+        def internal_prove(circuit, wires, timings, rng):
             calls.append(1)
             if len(calls) <= RETRY_FAILURES:
                 raise prover.InvZeroPermArg()
-            return real(circuit, wires, timings)
+            return real(circuit, wires, timings, rng)
 
         prover._internal_prove = internal_prove
         try:
