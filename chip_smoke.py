@@ -104,6 +104,26 @@
      launched (the 2^17-row LDEs, the salted 139 / 24 / 20-wide sponges,
      the 2^17-leaf trees), against its plain version with its bounds.
 
+8. BabyBear recursion, before phase 5 too:
+   - the recursive verifier over the BabyBear 2^12 chain and its proof
+     from phase 4 (the reference's recursive_verifier.rs:317, 2^13 rows,
+     bb4, FRI arity 2^3), built once on the card (``gadgets_s``,
+     ``build_s`` and its phases, the build's launches), its common data,
+     cap and digest against the JAX build
+     (``data/recursive_bb_2e12inner_{common,verifier}.bin``), witnessed
+     (``witgen_s``), proved warm 3 times (phases, every BB kernel's
+     launches over one prove), one more prove profiled, verified and a
+     tampered copy rejected;
+   - the width-24 hash circuit (``circuits.r0_hash`` under
+     ``recursion_config_bb_wide()``) and the Tip5-16 lookups under
+     ``standard_recursion_config_bb()``, built and proved from
+     ``NonRandomRng(1)``, each against its JAX fixture
+     (``data/r0_hash.npz``, ``lookup_tip5_bb.npz``: metadata, cap, every
+     proof phase, the counter), verified, a tampered copy rejected;
+   - then every kernel at each new shape of these builds and proves (the
+     BB NTT at 2^16 rows by its passes among them), against its plain
+     version with its bounds.
+
 Between 3 and 4, the probe phase: each dependent-chain probe kernel
 (``ops/probes.py``: GL multiply, squaring, two x^7 S-boxes, u32 multiply,
 multiply-and-mask, add, f32 FMA) is held against its plain version at a
@@ -130,6 +150,7 @@ phase fails.  A detailed report goes to chip_smoke_out/chip_smoke_report.json.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -352,6 +373,38 @@ def _common_equal(common, want) -> dict:
     }
 
 
+def _expect(rec, failures, label, ok) -> None:
+    """Print ``ok`` (check -> bool), keep it in ``rec["equal"]``, and fail
+    each check that does not hold."""
+    print(f"{label}: " + json.dumps(ok))
+    rec.setdefault("equal", {})[label] = ok
+    failures.extend(f"{label}: {k} differs" for k, v in ok.items() if not v)
+
+
+def _rejects(failures, data, proof, label, tamper) -> None:
+    """A copy of ``proof`` changed by ``tamper`` must fail
+    ``data.verify``."""
+    import copy
+
+    from plonky2_goldibear_torch.plonk.verifier import VerificationError
+
+    bad = copy.deepcopy(proof)
+    tamper(bad)
+    try:
+        data.verify(bad)
+        failures.append(f"{label}: a tampered copy was accepted")
+    except VerificationError:
+        print(f"{label}: verified; tampered copy rejected")
+
+
+def _bump_wire(index: int, p: int):
+    """A tamper: one component of one wire opening moved by one."""
+    def bump(proof):
+        w = proof.proof.openings.wires
+        w[index] = ((w[index][0] + 1) % p,) + tuple(w[index][1:])
+    return bump
+
+
 def _timed_proves(prove, reps, label, failures, counters):
     """``reps`` warm proves by ``prove(timings)`` (the caller has made one),
     each timed, every kernel's launches counted over the last; the profile
@@ -392,16 +445,18 @@ def _timed_proves(prove, reps, label, failures, counters):
     return proofs, times, median_phases, launches, prof
 
 
-def _built(make, config, label, calls, timings=None):
+def _built(make, config, label, calls, timings=None, spec=None):
     """(data, inputs, gadgets s, build s, launches): the circuit of ``make``
-    built on the card, the kernel calls of the build in ``calls[label]``
-    and its launches counted (the counts set to 0 just before it)."""
+    built on the card over the field of ``spec`` (Goldilocks by default),
+    the kernel calls of the build in ``calls[label]`` and its launches
+    counted (the counts set to 0 just before it)."""
     import torch
 
     from plonky2_goldibear_torch import ops
+    from plonky2_goldibear_torch.field import host
     from plonky2_goldibear_torch.plonk.builder import CircuitBuilder
 
-    b = CircuitBuilder(config)
+    b = CircuitBuilder(config, spec or host.GOLDILOCKS)
     t0 = time.perf_counter()
     inputs = make(b)
     gadgets_s = time.perf_counter() - t0
@@ -428,7 +483,6 @@ def phase_zk_lookups(report, failures, calls, made) -> None:
     ``calls`` gets the kernel calls of each build and prove of paths A and
     B, ``made`` each (label, proof, verifier data, common data) for phase
     5."""
-    import copy
     from dataclasses import replace
 
     import numpy as np
@@ -446,33 +500,16 @@ def phase_zk_lookups(report, failures, calls, made) -> None:
                                                             read_fixture)
     from plonky2_goldibear_torch.plonk.config import CircuitConfig
     from plonky2_goldibear_torch.plonk.proof import flatten_proof
-    from plonky2_goldibear_torch.plonk.verifier import VerificationError
     from plonky2_goldibear_torch.recursion import recursive_verifier as rv
 
     gl_kernels = ("ntt", "permute", "leaf_sponge", "merkle_levels")
     rec = report.setdefault("zk_lookups", {})
-
-    def expect(label, ok):
-        print(f"{label}: " + json.dumps(ok))
-        rec.setdefault("equal", {})[label] = ok
-        failures.extend(f"{label}: {k} differs" for k, v in ok.items()
-                        if not v)
-
-    def rejects(data, proof, label, tamper):
-        bad = copy.deepcopy(proof)
-        tamper(bad)
-        try:
-            data.verify(bad)
-            failures.append(f"{label}: a tampered copy was accepted")
-        except VerificationError:
-            print(f"{label}: verified; tampered copy rejected")
+    expect = functools.partial(_expect, rec, failures)
+    rejects = functools.partial(_rejects, failures)
+    bump_wire = _bump_wire(7, gl.P)
 
     def bump_output(pr):
         pr.public_inputs[-1] = (pr.public_inputs[-1] + 1) % gl.P
-
-    def bump_wire(pr):
-        w = pr.proof.openings.wires
-        w[7] = ((w[7][0] + 1) % gl.P,) + tuple(w[7][1:])
 
     # -- A: the regression recursion, zk, 2^14 ---------------------------
     zk = CircuitConfig.standard_recursion_zk_config_gl()
@@ -685,6 +722,119 @@ def phase_zk_lookups(report, failures, calls, made) -> None:
     made.append(("lookup_recursive", proof, lr.verifier_only, lr.common))
     rec["lookup_recursive"] = dict(gadgets_s=gadgets_s, build_s=build_s,
                                    witgen_s=witgen_s, prove_s=prove_s)
+
+
+def phase_bb_recursion(inner, inner_proof, report, failures, calls,
+                       made) -> None:
+    """Phase 8 (see the module docstring): BabyBear recursion over
+    ``inner`` (the BB 2^12 chain's ``CircuitData``) and ``inner_proof``,
+    then the width-24 hash and the BB lookup circuits against their JAX
+    fixtures.  ``calls`` gets the kernel calls of each build and prove,
+    ``made`` each (label, proof, verifier data, common data) for phase
+    5."""
+    import numpy as np
+    import torch
+
+    from plonky2_goldibear_torch import circuits, ops
+    from plonky2_goldibear_torch.field import bb, host
+    from plonky2_goldibear_torch.iop.generator import NonRandomRng
+    from plonky2_goldibear_torch.iop.witness import PartialWitness
+    from plonky2_goldibear_torch.plonk import prover
+    from plonky2_goldibear_torch.plonk import serialization as ser
+    from plonky2_goldibear_torch.plonk.circuit_data import (circuit_meta,
+                                                            read_fixture)
+    from plonky2_goldibear_torch.plonk.config import CircuitConfig
+    from plonky2_goldibear_torch.plonk.proof import flatten_proof
+    from plonky2_goldibear_torch.recursion import recursive_verifier as rv
+
+    spec = host.BABYBEAR
+    bb_kernels = ("ntt_bb", "p2_permute", "p2_leaf_sponge",
+                  "p2_merkle_levels")
+    rec = report.setdefault("bb_recursive", {})
+    expect = functools.partial(_expect, rec, failures)
+    rejects = functools.partial(_rejects, failures)
+
+    def recorded(label, fn):
+        ops.calls = []
+        try:
+            return fn()
+        finally:
+            calls[label], ops.calls = ops.calls, None
+
+    # -- the BB outer over the 2^12 chain's proof: one build --------------
+    holder, timings = {}, {}
+    outer, _, gadgets_s, build_s, build_launches = _built(
+        lambda b: holder.update(t=circuits.recursive_verifier(
+            b, inner.common)), inner.common.config, "build", calls,
+        timings, spec)
+    failures.extend(f"kernel {k} was not launched by the BB recursive build"
+                    for k in ("ntt_bb", "p2_leaf_sponge", "p2_merkle_levels")
+                    if build_launches.get(k, 0) <= 0)
+    proof_t, vk_t = holder["t"]
+    want = ser.read_common_circuit_data(
+        _read_bin("recursive_bb_2e12inner_common.bin"), spec)
+    ok = {"degree_bits": outer.common.degree_bits == want.degree_bits,
+          **_common_equal(outer.common, want),
+          "constants_sigmas_cap_and_digest": outer.verifier_only
+          == ser.read_verifier_only_circuit_data(
+              _read_bin("recursive_bb_2e12inner_verifier.bin"), spec)}
+    pw = PartialWitness()
+    rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
+    rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
+    t0 = time.perf_counter()
+    circuit = outer.circuit(pw, NonRandomRng(1))
+    torch.cuda.synchronize()
+    witgen_s = time.perf_counter() - t0
+    ok["public_inputs"] = circuit.public_inputs == \
+        list(inner_proof.public_inputs)
+    label = f"BB recursive 2^{outer.common.degree_bits}"
+    expect(f"{label} built by the port vs the JAX build", ok)
+    print(f"{label}: gadgets_s {gadgets_s:.4f}, build_s {build_s:.4f} "
+          + json.dumps({k: round(v, 4) for k, v in timings.items()})
+          + f", witgen_s {witgen_s:.4f}")
+
+    # the warm-up prove records the kernel calls; 3 timed, 1 profiled
+    recorded("prove", lambda: prover.prove(circuit, device="cuda"))
+    proofs, times, phases, launches, prof = _timed_proves(
+        lambda t: prover.prove(circuit, device="cuda", timings=t), 3,
+        label, failures, bb_kernels)
+    proof = proofs[-1]
+    outer.verify(proof)
+    rejects(outer, proof, label, _bump_wire(0, bb.P))
+    made.append(("babybear_recursive_2e12", proof, outer.verifier_only,
+                 outer.common))
+    rec.update(gadgets_s=gadgets_s, build_s=build_s, build_phases=timings,
+               build_launches=build_launches, witgen_s=witgen_s,
+               prove_s=times, phases=phases, launches=launches,
+               profile=prof, degree_bits=outer.common.degree_bits)
+
+    # -- the width-24 hash and the BB Tip5-16 lookups, against JAX --------
+    for name, make, config, values in (
+            ("r0_hash", circuits.r0_hash,
+             CircuitConfig.recursion_config_bb_wide(),
+             circuits.r0_hash_inputs()),
+            ("lookup_tip5_bb", circuits.tip5_lookups,
+             CircuitConfig.standard_recursion_config_bb(),
+             circuits.TIP5_INPUTS)):
+        data, ins, *_ = _built(make, config, f"{name}_build", calls,
+                               spec=spec)
+        pw = PartialWitness()
+        pw.set_targets(ins, values)
+        rng = NonRandomRng(1)
+        proof = recorded(f"{name}_prove", lambda: data.prove(pw, rng=rng))
+        arrays, meta = read_fixture(os.path.join(ROOT, DATA.format(
+            name + ".npz")))
+        ok = {"meta": circuit_meta(data, "babybear") == meta,
+              "constants_sigmas_cap": bool(np.array_equal(np.asarray(
+                  data.verifier_only.constants_sigmas_cap, np.uint64),
+                  arrays["constants_sigmas_cap"])),
+              "counter": rng.counter == int(arrays["proof_counter"])}
+        ok.update({f"proof_{k}": bool(np.array_equal(v, arrays["proof_" + k]))
+                   for k, v in flatten_proof(proof).items()})
+        expect(f"{name} on the card vs the JAX fixture", ok)
+        data.verify(proof)
+        rejects(data, proof, name, _bump_wire(1, bb.P))
+        made.append((name, proof, data.verifier_only, data.common))
 
 
 def phase_verify(made, failures) -> dict:
@@ -1466,6 +1616,24 @@ def main() -> int:
         except Exception as e:
             failures.append(f"{field} main path: {type(e).__name__}: {e}")
 
+    checked = {tuple(c) for calls in (*prove_calls.values(),
+                                      *build_calls.values()) for c in calls}
+
+    def check_new_shapes(new_calls, label):
+        """Every kernel at each shape of ``new_calls`` (label -> recorded
+        calls) not checked yet, with its probe bound."""
+        report[f"{label}_calls"] = new_calls
+        print(f"{label} calls: " + json.dumps(
+            {k: sorted(set(map(tuple, v))) for k, v in new_calls.items()}))
+        for call in sorted({tuple(c) for calls in new_calls.values()
+                            for c in calls} - checked):
+            prove_shape_check(call)
+            key = _shape_key(call)
+            report["checks"][key]["call"] = list(call)
+            if probe_rate:
+                probe_bound(key, report["checks"][key])
+            checked.add(call)
+
     # -- phase 6: the recursive verifier over the GL 2^12 chain -------------
     recursive_calls = {}
     try:
@@ -1474,18 +1642,7 @@ def main() -> int:
         inner, inner_proof = mains["goldilocks"]
         made += phase_recursion(inner, inner_proof, report, failures,
                                 recursive_calls)
-        # every kernel at each shape the outer's build and prove launch
-        done = {tuple(c) for calls in (*prove_calls.values(),
-                                       *build_calls.values()) for c in calls}
-        for call in sorted({tuple(c) for calls in recursive_calls.values()
-                            for c in calls} - done):
-            prove_shape_check(call)
-            key = _shape_key(call)
-            report["checks"][key]["call"] = list(call)
-            if probe_rate:
-                probe_bound(key, report["checks"][key])
-        report["recursive_calls"] = recursive_calls
-        print("recursive calls: " + json.dumps(recursive_calls))
+        check_new_shapes(recursive_calls, "recursive")
     except Exception as e:
         failures.append(f"recursion phase: {type(e).__name__}: {e}")
 
@@ -1496,24 +1653,29 @@ def main() -> int:
     except Exception as e:
         failures.append(f"zk and lookups phase: {type(e).__name__}: {e}")
     try:
-        # every kernel at each new shape the zk and lookup builds and
-        # proves launch
-        done = {tuple(c) for calls in (*prove_calls.values(),
-                                       *build_calls.values(),
-                                       *recursive_calls.values())
-                for c in calls}
-        for call in sorted({tuple(c) for calls in zk_calls.values()
-                            for c in calls} - done):
-            prove_shape_check(call)
-            key = _shape_key(call)
-            report["checks"][key]["call"] = list(call)
-            if probe_rate:
-                probe_bound(key, report["checks"][key])
-        report["zk_lookup_calls"] = zk_calls
-        print("zk and lookup calls: " + json.dumps(
-            {k: sorted(set(map(tuple, v))) for k, v in zk_calls.items()}))
+        check_new_shapes(zk_calls, "zk_lookup")
     except Exception as e:
         failures.append(f"zk and lookup shape checks: {type(e).__name__}: "
+                        f"{e}")
+
+    # -- phase 8: BabyBear recursion, the width-24 hash, BB lookups ----------
+    bb_calls = {}
+    try:
+        if "babybear" not in mains:
+            raise RuntimeError("no BB 2^12 chain proof from phase 4")
+        inner, inner_proof = mains["babybear"]
+        phase_bb_recursion(inner, inner_proof, report, failures, bb_calls,
+                           made)
+    except Exception as e:
+        failures.append(f"BB recursion phase: {type(e).__name__}: {e}")
+    try:
+        check_new_shapes(bb_calls, "bb_recursive")
+        big = [k for k, c in report["checks"].items()
+               if c.get("call") and c["call"][0] == "ntt_bb"
+               and c["call"][2] > 1 << 15]
+        print("BB NTT calls above 2^15 rows, checked: " + json.dumps(big))
+    except Exception as e:
+        failures.append(f"BB recursion shape checks: {type(e).__name__}: "
                         f"{e}")
 
     # -- phase 5: the verifier, on the host ----------------------------------

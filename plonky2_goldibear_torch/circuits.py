@@ -95,6 +95,38 @@ def recursive_verifier(builder, inner_common, rv=None,
     return proof_t, vk_t
 
 
+R0_HASH_SEED = 14
+R0_HASH_LEN = 24
+
+
+def r0_hash_inputs():
+    """The 24 BabyBear values ``r0_hash`` hashes: seeded python
+    ``random.Random(14)``, as the reference test's JAX twin draws them."""
+    import random
+
+    from .field.host import BABYBEAR
+
+    rng = random.Random(R0_HASH_SEED)
+    return [rng.randrange(BABYBEAR.p) for _ in range(R0_HASH_LEN)]
+
+
+def r0_hash(builder, r0=None):
+    """The circuit of the reference's poseidon2_risc0_babybear.rs:344-367
+    (JAX ``tests/test_poseidon2_r0.py:73-97``), built under
+    ``recursion_config_bb_wide()``: ``hash_or_noop`` of 24 targets with the
+    width-24 Poseidon2 hasher ``r0`` (the hasher module of the builder's
+    package; the port's by default), each digest element connected to the
+    constant of the host hash of ``r0_hash_inputs()``.  Returns the 24
+    input targets; the witness sets them to ``r0_hash_inputs()``."""
+    if r0 is None:
+        from .hash import poseidon2_r0_bb as r0
+    ts = builder.add_virtual_targets(R0_HASH_LEN)
+    digest = builder.hash_or_noop(ts, hasher=r0)
+    for d, e in zip(digest, r0.hash_no_pad_host(r0_hash_inputs())):
+        builder.connect(d, builder.constant(e))
+    return ts
+
+
 EXT_MIX_INPUTS = (3, 5, 7, 11, 13, 1, 0, 21)
 
 

@@ -5,15 +5,18 @@ the circuit's ``luts``)."""
 import re
 
 from ..field import host
-from .access_gates import BaseSumGate, RandomAccessGate
+from .access_gates import (BaseSumGate, ExponentiationGate,
+                           RandomAccessGate)
 from .base import Gate
 from .basic_gates import ArithmeticGate, ConstantGate, NoopGate, \
     PublicInputGate
 from .coset_interpolation import CosetInterpolationGate
 from .extension_gates import ArithmeticExtensionGate, MulExtensionGate
 from .lookup_gates import LookupGate, LookupTableGate, lut_hash
+from .misc_gates import ApplyMat4Gate, Poseidon2InternalPermutationGate
 from .poseidon import PoseidonGate
 from .poseidon2_bb_gate import Poseidon2BabyBearGate
+from .poseidon2_r0_bb_gate import Poseidon2R0BabyBearGate
 from .poseidon_mds import PoseidonMdsGate
 from .reducing import ReducingExtensionGate, ReducingGate
 
@@ -29,6 +32,15 @@ _PATTERNS = [
     (r"Poseidon2BabyBearGate \{ num_ops: (\d+), _phantom: "
      r"PhantomData<p3_baby_bear::baby_bear::BabyBear> \}<WIDTH=16>",
      lambda m, s: Poseidon2BabyBearGate(int(m[1]))),
+    (r"Poseidon2R0BabyBearGate \{ num_ops: (\d+), _phantom: "
+     r"PhantomData<p3_baby_bear::baby_bear::BabyBear> \}<WIDTH=24>",
+     lambda m, s: Poseidon2R0BabyBearGate(int(m[1]))),
+    (r"ApplyMat4Gate \{ num_ops: (\d+), _phantom: "
+     r"PhantomData<p3_baby_bear::baby_bear::BabyBear> \}<D=(\d+)>",
+     lambda m, s: ApplyMat4Gate(int(m[1]), int(m[2]))),
+    (r"Poseidon2InternalPermutationGate \{ _phantom: "
+     r"PhantomData<p3_baby_bear::baby_bear::BabyBear> \}<D=(\d+)>",
+     lambda m, s: Poseidon2InternalPermutationGate(int(m[1]))),
     (r"ArithmeticExtensionGate \{ num_ops: (\d+) \}",
      lambda m, s: ArithmeticExtensionGate(int(m[1]), s.ext_degree)),
     (r"MulExtensionGate \{ num_ops: (\d+) \}",
@@ -40,6 +52,9 @@ _PATTERNS = [
     (r"RandomAccessGate \{ bits: (\d+), num_copies: (\d+), "
      r"num_extra_constants: (\d+) \}",
      lambda m, s: RandomAccessGate(int(m[1]), int(m[2]), int(m[3]))),
+    (r"ExponentiationGate \{ num_power_bits: (\d+), _phantom: "
+     r"PhantomData<[\w:]+> \}<D=\d>",
+     lambda m, s: ExponentiationGate(int(m[1]), s)),
     (r"BaseSumGate \{ num_limbs: (\d+) \} \+ Base: (\d+)",
      lambda m, s: BaseSumGate(int(m[1]), int(m[2]))),
     (r"(\d+),(\d+),\[([\d, ]*)\]<D=(\d+)>",

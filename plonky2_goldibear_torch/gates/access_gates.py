@@ -1,16 +1,23 @@
-"""RandomAccessGate and BaseSumGate, constraint side (reference
-plonky2/src/gates/{random_access.rs, base_sum.rs}; the JAX package's
-``gates/access_gates.py``).  The recursive verifier's list lookups
-(``plonk/gadgets.py:random_access``) and bit splits (``split_le``) place
-them.  ``ExponentiationGate`` (tag 5) is not ported: ROADMAP Queue 1 item
-4b.
+"""RandomAccessGate, BaseSumGate and ExponentiationGate (reference
+plonky2/src/gates/{random_access.rs, base_sum.rs, exponentiation.rs}; the
+JAX package's ``gates/access_gates.py``).  The recursive verifier's list
+lookups (``plonk/gadgets.py:random_access``) and bit splits
+(``split_le``) place the first two; its FRI query's x = g^index places an
+ExponentiationGate where the index has more bits than one arithmetic gate
+has ops (``exp_from_bits_const_base``: the BabyBear outer over a 2^12
+inner).
 """
 
 from __future__ import annotations
 
+from ..field import host
 from ..iop import generator as gen
 from ..iop import target as tgt
 from .base import Gate
+
+# the reference's Debug name of each field type, in a gate id
+FIELD_TYPE = {"goldilocks": "plonky2_field::goldilocks_field::GoldilocksField",
+              "babybear": "p3_baby_bear::baby_bear::BabyBear"}
 
 
 class RandomAccessGate(Gate):
@@ -206,3 +213,98 @@ class _BaseSplitGenerator(gen.SimpleGenerator):
             out.append((tgt.wire(self.row, i), v % g.base))
             v //= g.base
         assert v == 0, "sum does not fit in limbs"
+
+
+class ExponentiationGate(Gate):
+    """output = base^(sum_i 2^i bit_i): wire 0 the base, then the power
+    bits (little-endian), the output, and one intermediate per bit, the
+    square-and-multiply from the top bit down (reference
+    exponentiation.rs:31-160)."""
+
+    def __init__(self, num_power_bits: int,
+                 spec: host.FieldSpec = host.GOLDILOCKS):
+        self.num_power_bits = num_power_bits
+        self.spec = spec
+
+    @classmethod
+    def from_config(cls, config, spec: host.FieldSpec = host.GOLDILOCKS):
+        return cls(min(config.num_routed_wires - 2,
+                       (config.num_wires - 2) // 2), spec)
+
+    def id(self):
+        """As the reference prints it (``{self:?}<D={D}>``).  The JAX
+        package's id names the Goldilocks field and D = 2 over BabyBear
+        too."""
+        return (f"ExponentiationGate {{ num_power_bits: "
+                f"{self.num_power_bits}, _phantom: PhantomData<"
+                f"{FIELD_TYPE[self.spec.name]}> }}<D={self.spec.ext_degree}>")
+
+    def wire_base(self):
+        return 0
+
+    def wire_power_bit(self, i):
+        return 1 + i
+
+    def wire_output(self):
+        return 1 + self.num_power_bits
+
+    def wire_intermediate_value(self, i):
+        return 2 + self.num_power_bits + i
+
+    def num_wires(self):
+        return 2 + 2 * self.num_power_bits
+
+    def num_constants(self):
+        return 0
+
+    def degree(self):
+        return 4
+
+    def num_constraints(self):
+        return self.num_power_bits + 1
+
+    def eval_unfiltered(self, A, vars):
+        lw = vars.local_wires
+        base = lw[self.wire_base()]
+        nb = self.num_power_bits
+        one = A.one()
+        out = []
+        for i in range(nb):
+            prev = one if i == 0 else A.mul(
+                lw[self.wire_intermediate_value(i - 1)],
+                lw[self.wire_intermediate_value(i - 1)])
+            bit = lw[self.wire_power_bit(nb - i - 1)]
+            computed = A.mul(prev, A.add(A.mul(bit, base), A.sub(one, bit)))
+            out.append(A.sub(computed, lw[self.wire_intermediate_value(i)]))
+        out.append(A.sub(lw[self.wire_output()],
+                         lw[self.wire_intermediate_value(nb - 1)]))
+        return out
+
+    def generators(self, row, local_constants, spec):
+        return [_ExponentiationGenerator(self, row, spec)]
+
+
+class _ExponentiationGenerator(gen.SimpleGenerator):
+    """The intermediates and the output from the base and the bits."""
+
+    def __init__(self, gate, row, spec):
+        self.gate, self.row, self.spec = gate, row, spec
+
+    def dependencies(self):
+        g = self.gate
+        return [tgt.wire(self.row, g.wire_base())] + [
+            tgt.wire(self.row, g.wire_power_bit(i))
+            for i in range(g.num_power_bits)]
+
+    def run_once(self, witness, out):
+        g, row, p = self.gate, self.row, self.spec.p
+        base = witness.get_target(tgt.wire(row, g.wire_base()))
+        nb = g.num_power_bits
+        bits = [witness.get_target(tgt.wire(row, g.wire_power_bit(i)))
+                for i in range(nb)]
+        inter = 1
+        for i in range(nb):
+            bit = bits[nb - i - 1]
+            inter = inter * inter % p * (bit * base + 1 - bit) % p
+            out.append((tgt.wire(row, g.wire_intermediate_value(i)), inter))
+        out.append((tgt.wire(row, g.wire_output()), inter))

@@ -117,14 +117,17 @@ class Poseidon2BabyBearGate(Gate):
         for op in range(self.num_ops):
             swap = lw[self.wire_swap(op)]
             constraints.append(A.mul(swap, A.sub(swap, one)))
-            state = [lw[self.wire_input(op, i)] for i in range(W)]
+            inputs = [lw[self.wire_input(op, i)] for i in range(W)]
+            deltas = [lw[self.wire_delta(op, i)] for i in range(CAP)]
+            # every delta's constraint, then the swapped state: the
+            # circuit algebra places its gates in this order
             for i in range(CAP):
-                delta = lw[self.wire_delta(op, i)]
-                lhs, rhs = state[i], state[i + CAP]
-                constraints.append(A.sub(A.mul(swap, A.sub(rhs, lhs)),
-                                         delta))
-                state[i], state[i + CAP] = A.add(lhs, delta), \
-                    A.sub(rhs, delta)
+                constraints.append(A.sub(A.mul(
+                    swap, A.sub(inputs[i + CAP], inputs[i])), deltas[i]))
+            state = [None] * W
+            for i in range(CAP):
+                state[i] = A.add(inputs[i], deltas[i])
+                state[i + CAP] = A.sub(inputs[i + CAP], deltas[i])
             state = p2.external_layer_a(A, state)
             for r in range(HALF):
                 state = [A.add_base_const(x, c)

@@ -6,8 +6,9 @@ gates).
 The builder is a host frontend: targets, gates placed row by row, copy
 constraints and constants, base-field and extension arithmetic, lookup
 tables and lookups, for the gates the port has (Arithmetic, Constant,
-PublicInput, Noop, Poseidon-GL, Poseidon2-BB width 16, the two lookup
-gates, and the recursive verifier's: the extension arithmetic, reducing,
+PublicInput, Noop, Poseidon-GL, Poseidon2-BB width 16 and width 24 (the
+latter for a hashing gadget given ``hasher=hash.poseidon2_r0_bb``), the
+two lookup gates, and the recursive verifier's: the extension arithmetic, reducing,
 random-access, base-sum, coset-interpolation and Poseidon MDS gates,
 placed by ``plonk/gadgets.py``).  ``build`` places the lookup rows and,
 under a zero-knowledge config, the blinding rows, lays out the selectors
@@ -110,10 +111,26 @@ class CircuitBuilder:
         self.context_tree = ContextTree()
 
     def _check_hasher(self, hasher):
+        """The builder's hasher commits and runs the transcript: its own
+        field's (Keccak waits for item 7)."""
         if hasher is None or hasher is self.hasher:
             return
-        if getattr(hasher, "WIDTH", None) == 24:
-            raise _not_ported("the width-24 Poseidon2 hasher", 6)
+        if getattr(hasher, "IN_CIRCUIT_ONLY", False):
+            raise ValueError(f"{hasher.__name__} hashes in the circuit "
+                             "only: pass it to a hashing gadget")
+        raise _not_ported(f"hasher {getattr(hasher, '__name__', hasher)}", 7)
+
+    def _gadget_hasher(self, hasher):
+        """The hasher of a hashing gadget: the builder's own by default, or
+        an in-circuit hasher of the builder's field (the width-24 Poseidon2
+        over BabyBear)."""
+        if hasher is None or hasher is self.hasher:
+            return self.hasher
+        if getattr(hasher, "IN_CIRCUIT_ONLY", False):
+            if hasher.F.SPEC.name != self.spec.name:
+                raise ValueError(f"{hasher.__name__} is a "
+                                 f"{hasher.F.SPEC.name} hasher")
+            return hasher
         raise _not_ported(f"hasher {getattr(hasher, '__name__', hasher)}", 7)
 
     # -- targets -------------------------------------------------------------
@@ -673,9 +690,12 @@ class CircuitBuilder:
                         hasher=None) -> List[tgt.Target]:
         """One permutation-gate op: permute ``state``, the first two
         digest-size chunks swapped when ``swap`` is 1 (Poseidon width 12
-        for Goldilocks, Poseidon2 width 16 for BabyBear)."""
-        self._check_hasher(hasher)
-        if self.spec.name == "goldilocks":
+        for Goldilocks, Poseidon2 width 16 for BabyBear, or the width-24
+        Poseidon2 ``hasher``)."""
+        hasher = self._gadget_hasher(hasher)
+        if hasher is not self.hasher:
+            g = hasher.permutation_gate(self.config)
+        elif self.spec.name == "goldilocks":
             g = PoseidonGate()
             row = self.add_gate(g, [])
             self.connect(swap, tgt.wire(row, PoseidonGate.WIRE_SWAP))
@@ -683,7 +703,8 @@ class CircuitBuilder:
                 self.connect(s, tgt.wire(row, PoseidonGate.wire_input(i)))
             return [tgt.wire(row, PoseidonGate.wire_output(i))
                     for i in range(len(state))]
-        g = Poseidon2BabyBearGate.from_config(self.config)
+        else:
+            g = Poseidon2BabyBearGate.from_config(self.config)
         row, op = self.find_slot(g, [], [])
         self.connect(swap, tgt.wire(row, g.wire_swap(op)))
         for i, s in enumerate(state):
@@ -698,21 +719,25 @@ class CircuitBuilder:
     def hash_n_to_m_no_pad(self, inputs: Sequence[tgt.Target],
                            num_outputs: int,
                            hasher=None) -> List[tgt.Target]:
-        """The overwrite-mode sponge in the circuit (config.rs:135-166)."""
-        self._check_hasher(hasher)
-        rate, width = self.hasher.RATE, self.hasher.WIDTH
+        """The overwrite-mode sponge in the circuit (config.rs:135-166);
+        the width-24 sponge zero-fills a short chunk to the rate
+        (poseidon2_risc0_babybear.rs:249-254)."""
+        hasher = self._gadget_hasher(hasher)
+        rate, width = hasher.RATE, hasher.WIDTH
         state = [self.zero()] * width
         for i in range(0, len(inputs), rate):
             chunk = list(inputs[i:i + rate])
+            if getattr(hasher, "ZERO_FILL", False):
+                chunk += [self.zero()] * (rate - len(chunk))
             state = chunk + state[len(chunk):]
-            state = self.permute(state)
+            state = self.permute(state, hasher)
         outputs: List[tgt.Target] = []
         while True:
             for s in state[:rate]:
                 outputs.append(s)
                 if len(outputs) == num_outputs:
                     return outputs
-            state = self.permute(state)
+            state = self.permute(state, hasher)
 
     def hash_n_to_hash_no_pad(self, inputs: Sequence[tgt.Target],
                               hasher=None) -> List[tgt.Target]:

@@ -132,5 +132,12 @@ class CircuitConfig:
                        num_routed_wires=41, num_challenges=6)
 
     @staticmethod
+    def recursion_config_bb_wide() -> "CircuitConfig":
+        """334 wires, 160 routed, 6 challenges (FRI arity 2^3): room for a
+        width-24 Poseidon2 op in a row."""
+        return replace(CircuitConfig._standard_base(), num_wires=334,
+                       num_routed_wires=160, num_challenges=6)
+
+    @staticmethod
     def standard_recursion_config_bb() -> "CircuitConfig":
         return CircuitConfig.recursion_config_bb_narrow()

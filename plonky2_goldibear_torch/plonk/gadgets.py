@@ -16,18 +16,14 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from ..field import host
-from ..gates.access_gates import BaseSumGate, RandomAccessGate
+from ..gates.access_gates import (BaseSumGate, ExponentiationGate,
+                                  RandomAccessGate)
 from ..gates.basic_gates import ArithmeticGate
 from ..gates.coset_interpolation import CosetInterpolationGate
 from ..gates.extension_gates import ArithmeticExtensionGate
 from ..gates.reducing import ReducingExtensionGate, ReducingGate
 from ..iop import generator as gen
 from ..iop import target as tgt
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 4b)")
 
 
 # -- select and booleans -----------------------------------------------------
@@ -56,8 +52,16 @@ def num_base_arithmetic_ops_per_gate(b) -> int:
 
 def exp_from_bits(b, base, bits: Sequence):
     """base^(sum 2^i bit_i) through one ExponentiationGate
-    (arithmetic.rs:275-296): the gate (tag 5) is not ported."""
-    raise _not_ported("exp_from_bits (ExponentiationGate)")
+    (arithmetic.rs:275-296); bits little-endian, zero-padded to the gate's
+    power-bit count."""
+    gate = ExponentiationGate.from_config(b.config, b.spec)
+    bits = list(bits)
+    bits += [b.zero()] * (gate.num_power_bits - len(bits))
+    row = b.add_gate(gate, [])
+    b.connect(base, tgt.wire(row, gate.wire_base()))
+    for i, bit in enumerate(bits):
+        b.connect(bit, tgt.wire(row, gate.wire_power_bit(i)))
+    return tgt.wire(row, gate.wire_output())
 
 
 def exp_from_bits_const_base(b, base: int, bits_le: Sequence):
@@ -81,8 +85,12 @@ def exp_from_bits_const_base(b, base: int, bits_le: Sequence):
 
 def exp_u64(b, base, exponent: int):
     """base^e with the exponent's bits as constants into one
-    ExponentiationGate (arithmetic.rs:340-350): not ported."""
-    raise _not_ported("exp_u64 (ExponentiationGate)")
+    ExponentiationGate (arithmetic.rs:340-350)."""
+    bits = []
+    while exponent:
+        bits.append(b.constant(exponent & 1))
+        exponent >>= 1
+    return exp_from_bits(b, base, bits)
 
 
 def exp_power_of_2(b, x, k: int):

@@ -11,11 +11,11 @@ are 8-byte little-endian words; digests are 32 bytes (Goldilocks: 4 u64,
 BabyBear: 8 u32).
 
 A lookup circuit's common data carries its tables; the lookup gates (tags
-6 and 7) name theirs by index and hash.  Not read yet, each raising
-``NotImplementedError`` with its ROADMAP Queue 1 item: the gates of tags 5
-and 17-19 (Exponentiation, AddMany, ApplyMat4,
-Poseidon2InternalPermutation; items 4b and 6), byte digests (the Keccak
-config, item 7).  The writers are item 11.
+6 and 7) name theirs by index and hash.  The width-24 Poseidon2 gate has
+no tag in the format, so a circuit that hashes with it in the circuit has
+no bytes.  Not read yet, each raising ``NotImplementedError`` with its
+ROADMAP Queue 1 item: the gate of tag 17 (AddMany; item 4b), byte digests
+(the Keccak config, item 7).  The writers are item 11.
 """
 
 from __future__ import annotations
@@ -24,12 +24,14 @@ import struct
 from typing import List, Tuple
 
 from ..field import host
-from ..gates.access_gates import BaseSumGate, RandomAccessGate
+from ..gates.access_gates import (BaseSumGate, ExponentiationGate,
+                                  RandomAccessGate)
 from ..gates.basic_gates import (ArithmeticGate, ConstantGate, NoopGate,
                                  PublicInputGate)
 from ..gates.coset_interpolation import CosetInterpolationGate
 from ..gates.extension_gates import ArithmeticExtensionGate, MulExtensionGate
 from ..gates.lookup_gates import LookupGate, LookupTableGate
+from ..gates.misc_gates import ApplyMat4Gate, Poseidon2InternalPermutationGate
 from ..gates.poseidon import PoseidonGate
 from ..gates.poseidon2_bb_gate import Poseidon2BabyBearGate
 from ..gates.poseidon_mds import PoseidonMdsGate
@@ -178,9 +180,7 @@ def read_selectors_info(buf: Buffer) -> SelectorsInfo:
 # -- gates (the DefaultGateSerializer's tags, reference
 #    gate_serialization.rs:143-166) ------------------------------------------
 
-_UNPORTED_TAGS = {5: ("ExponentiationGate", "4b"), 17: ("AddManyGate", "4b"),
-                  18: ("ApplyMat4Gate", 6),
-                  19: ("Poseidon2InternalPermutationGate", 6)}
+_UNPORTED_TAGS = {17: ("AddManyGate", "4b")}
 
 
 def _read_lookup_gate(buf: Buffer, make, luts):
@@ -212,6 +212,8 @@ def _read_gate(buf: Buffer, spec: host.FieldSpec, config: CircuitConfig,
         degree = buf.read_usize()
         weights = buf.read_field_vec(buf.read_usize(), spec)
         return CosetInterpolationGate(subgroup_bits, degree, weights, spec)
+    if tag == 5:
+        return ExponentiationGate(buf.read_usize(), spec)
     if tag == 6:
         return _read_lookup_gate(
             buf, lambda lut, slots: LookupGate(slots, lut), luts)
@@ -239,6 +241,10 @@ def _read_gate(buf: Buffer, spec: host.FieldSpec, config: CircuitConfig,
         return ReducingGate(buf.read_usize(), D)
     if tag == 16:
         return Poseidon2BabyBearGate.from_config(config)
+    if tag == 18:
+        return ApplyMat4Gate(buf.read_usize(), D)
+    if tag == 19:
+        return Poseidon2InternalPermutationGate(D)
     if tag in _UNPORTED_TAGS:
         name, item = _UNPORTED_TAGS[tag]
         raise _not_ported(f"{name} (gate tag {tag})", item)

@@ -596,8 +596,7 @@ def test_unported_features_raise_with_their_item():
     for call, item in (
             (lambda: b.add_many([x] * 23), "4b"),
             (lambda: b.build(device="cpu", commit_streaming=True), 9),
-            (lambda: b.permute([x] * 24, hasher=type(
-                "R0", (), {"WIDTH": 24})), 6),
+            (lambda: b.permute([x] * 12, hasher=object()), 7),
             (lambda: CircuitBuilder(cfg, hasher=object()), 7)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1 item {item}\\b"):

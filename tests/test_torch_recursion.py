@@ -348,15 +348,29 @@ def test_ext_mix_witness_matches_jax(ext_mix):
 
 
 def test_unported_gadgets_raise_with_their_item():
+    """The sum of 23 addends, one AddManyGate in the reference."""
     b = CircuitBuilder(config())
     x = b.add_virtual_target()
-    for call in (lambda: gadgets.exp_from_bits(b, x, [x]),
-                 lambda: gadgets.exp_u64(b, x, 5),
-                 lambda: gadgets.exp_power_of_2(b, x, 21),
-                 lambda: gadgets.exp_from_bits_const_base(b, 3, [x] * 21)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 4b"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4b"):
+        b.add_many([x] * 23)
+
+
+def test_exponentiation_gadgets_match_jax():
+    """The four gadgets that place an ExponentiationGate, on both
+    builders: the same rows, copies and constants."""
+    from plonky2_goldibear_tpu.plonk import gadgets as jgadgets
+
+    states = []
+    for b, gd in zip(_both_builders(), (gadgets, jgadgets)):
+        x = b.add_virtual_target()
+        bits = b.add_virtual_targets(21)
+        b.register_public_inputs([
+            gd.exp_from_bits(b, x, bits[:3]), gd.exp_u64(b, x, 5),
+            gd.exp_power_of_2(b, x, 21),
+            gd.exp_from_bits_const_base(b, 3, bits)])
+        states.append(_state(b))
+    assert states[0] == states[1]
+    assert any(g.startswith("ExponentiationGate") for g, _ in states[0][0])
 
 
 # --------------------------------------------------------------------------

@@ -397,15 +397,17 @@ def _jax_setup():
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
-def jax_prove_fixture(data, pw, path, bins=None, lookups=False):
+def jax_prove_fixture(data, pw, path, bins=None, lookups=False,
+                      field="goldilocks"):
     """With the JAX package: the witness of ``pw`` under
     ``set_nonrandom(True)`` (after ``set_lookup_wires`` for a lookup
     circuit), then the sync-transcript proof from the reset counter,
-    verified; written to ``path`` with the circuit's data.  ``bins``: a
-    name prefix for the JAX writers' common data, verifier data and proof
-    bytes.  Returns the proof."""
+    verified; written to ``path`` with the circuit's data (over ``field``).
+    ``bins``: a name prefix for the JAX writers' common data, verifier data
+    and proof bytes.  Returns the proof."""
     import time
 
+    from plonky2_goldibear_tpu.field import bb as jbb
     from plonky2_goldibear_tpu.field import fft as jfft
     from plonky2_goldibear_tpu.field import gl as jgl
     from plonky2_goldibear_tpu.iop import generator as gen
@@ -415,17 +417,18 @@ def jax_prove_fixture(data, pw, path, bins=None, lookups=False):
     from plonky2_goldibear_tpu.utils.timing import ProvingProcessInfo
 
     t0 = time.time()
+    jF = jgl if field == "goldilocks" else jbb
     common, po = data.common, data.prover_only
     gen.set_nonrandom(True)
     part = gen.generate_partial_witness(pw, po, common)
     counter = int(gen._NONRANDOM_COUNTER)
     if lookups:
         jprover.set_lookup_wires(po, common, part)
-    wires = WitnessTransfer(jgl, part, po, common, dense=True).matrix
+    wires = WitnessTransfer(jF, part, po, common, dense=True).matrix
     public_inputs = part.get_targets(po.public_inputs)
     arrays = {
-        "constants_sigmas": np.asarray(jgl.to_ints(jfft.fft(
-            jgl, po.constants_sigmas_commitment.coeffs)), dtype=np.uint64),
+        "constants_sigmas": np.asarray(jF.to_ints(jfft.fft(
+            jF, po.constants_sigmas_commitment.coeffs)), dtype=np.uint64),
         "constants_sigmas_cap": np.asarray(
             data.verifier_only.constants_sigmas_cap, dtype=np.uint64),
         "wires": np.asarray(wires, dtype=np.uint64),
@@ -440,7 +443,7 @@ def jax_prove_fixture(data, pw, path, bins=None, lookups=False):
     for k, v in flatten_proof(proof).items():
         arrays["proof_" + k] = v
     np.savez_compressed(path, meta=np.array(json.dumps(
-        circuit_meta(data, "goldilocks"))), **arrays)
+        circuit_meta(data, field))), **arrays)
     if bins:
         for part_name, blob in (
                 ("common", jser.write_common_circuit_data(common)),
