@@ -38,8 +38,9 @@
    - the main path at 2^12: adds the chain with the gadgets
      (``gadgets_s``), builds it on the card (``build_s`` and its phases;
      the kernels' launches counted over the build, the counts set to 0
-     just before it) and generates the witness (``witgen_s``), 3 times,
-     holds the last against the fixture, then proves it 3 times
+     just before it) and generates the witness (``witgen_s``),
+     ``BUILD_REPS`` times, holds the last against the fixture, then
+     proves it 3 times
      warm with ``prove``, every kernel's launches counted over one prove
      (the counts set to 0 just before it), and times one whole
      ``CircuitData.prove(pw)`` (witness generation and prove) beside it.
@@ -61,12 +62,13 @@
 
 6. the recursive verifier (``circuits.recursive_verifier``, the reference's
    headline recursion): over the Goldilocks 2^12 chain and its proof from
-   phase 4, builds the outer circuit on the card 3 times (``gadgets_s``,
+   phase 4, builds the outer circuit on the card ``BUILD_REPS`` times
+   (``gadgets_s``,
    ``build_s`` and its phases, the build's kernel launches) and holds its
    common data, constants/sigmas cap and digest against the JAX build
    (``data/recursive_gl_2e12inner_{common,verifier}.bin``, read by the
    port's reader); sets the inner proof and verifier data as its witness
-   and generates it (``witgen_s``, 3 times); proves it warm 3 times
+   and generates it (``witgen_s``, each time); proves it warm 3 times
    (recursive prove latency, phase seconds, every kernel's launches over
    one prove, which each GL kernel must have); profiles one more prove;
    verifies the proof with ``CircuitData.verify`` and rejects a copy with
@@ -124,6 +126,30 @@
      BB NTT at 2^16 rows by its passes among them), against its plain
      version with its bounds.
 
+9. the Keccak config (``hash/keccak_hasher.py``, the reference's
+   KeccakGoldilocksConfig), before phase 5 too.  Phase 3 has held the
+   Keccak kernels (``csrc/keccak.cu``: rows, Merkle levels, hash-onion)
+   against their plain versions at row lengths around the rate's edges
+   (``KECCAK_LENGTHS``) and the hash-onion at the grind's 2^17 states;
+   then:
+   - the small circuit of the JAX package's Keccak test
+     (``circuits.keccak_pow31``, 8 PoW bits) built with
+     ``hasher=keccak_hasher`` and proved from ``NonRandomRng(1)``,
+     against ``data/keccak_pow31.npz`` and the JAX bytes (metadata,
+     common data, constants/sigmas, cap and digest bytes, every proof
+     phase, the PoW witness ground by the hash-onion kernel); the port
+     verifies its proof and the JAX proof and rejects a tampered copy;
+   - the Keccak outer, the top of the reference's multi-hash tower
+     (recursive_verifier.rs:623-664): ``circuits.recursive_verifier`` with
+     Keccak over phase 6's outer and its proof, built once (common data,
+     cap and digest bytes against ``data/recursive_keccak_gl_2e12_
+     {common,verifier}.bin``), witnessed, proved warm 3 times (every
+     Keccak kernel's launches over one prove), one more prove profiled,
+     verified, tampered copies rejected;
+   - then every kernel at each new shape of these builds and proves.
+
+Each phase prints the script's seconds when it starts.
+
 Between 3 and 4, the probe phase: each dependent-chain probe kernel
 (``ops/probes.py``: GL multiply, squaring, two x^7 S-boxes, u32 multiply,
 multiply-and-mask, add, f32 FMA) is held against its plain version at a
@@ -162,12 +188,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 # NVIDIA's CUDA C++ documentation, arithmetic instruction throughput table,
 # compute capability 9.0, results per clock per SM: 32-bit integer multiply,
-# multiply-add, add and bitwise ops 64; 32-bit float fma 128
+# multiply-add, add, bitwise ops and funnel shifts 64; 32-bit float fma 128
 INT32_OPS_PER_SM_CLK = 64
 FP32_FMA_PER_SM_CLK = 128
 MULS_PER_FIELD_MUL = 4        # GL 64x64 -> 128 from four 32x32 products;
                               # BB Montgomery: 32x32 -> 64 (two), m, m p
 FMA_RTOL = 1e-5               # fmaf rounds once, the plain version twice
+# 32-bit operations of one Keccak-f[1600] on the lanes' halves, per round,
+# with three-input logic ops: theta 20 for the column sums (two a half),
+# 10 funnel shifts for the rotated sums, 50 to fold both into the lanes;
+# rho 48 funnel shifts (24 lanes); chi 50; iota 2 (csrc/keccak.cu)
+KECCAK_F_OPS = 24 * (20 + 10 + 50 + 48 + 50 + 2)
+KECCAK_RATE = 136             # bytes a Keccak-256 block absorbs
+KECCAK_DIGEST = 25            # bytes of a Keccak-config digest
 OUT_DIR = "chip_smoke_out"    # the report, listed in .gitignore
 PROFILE_TOP = 25              # kernels printed per profiled prove
 MAIN_BITS = 12                # the benchmark circuit: 2^12 rows
@@ -177,11 +210,19 @@ RUST_PROOF = "tests/data/gl_regression_{}.bin"   # the reference's 2^14 proof
 SMALL_BITS = 6                # a second fixture: small trees, mostly tail
 # the JAX build of the recursive verifier over the GL 2^12 chain
 OUTER_BIN = "plonky2_goldibear_torch/data/recursive_gl_2e12inner_{}.bin"
+# phase 9: the lengths each Keccak row launch is held at besides the
+# prove's (around the rate's edges: a padding block of its own at 136 and
+# 272), and the hash-onion's states (the grind's batch)
+KECCAK_LENGTHS = (25, 50, 96, 135, 136, 137, 272, 1080)
+KECCAK_PERMUTE_STATES = 1 << 17
 # phase 7: the JAX builds and fixtures of the zk and lookup circuits
 DATA = "plonky2_goldibear_torch/data/{}"
 # timed proves of the 2^14 zk outer: one, since the run with three took
 # over twice the command time of the script without phase 7
 ZK_PROVE_REPS = 1
+# builds (and witnesses) of the 2^12 chains and of the recursive outer:
+# one, since phase 9 took the script past 560 s with three
+BUILD_REPS = 1
 
 # Merkle trees checked besides the prove's: FRI layers to a cap of 16 and
 # a tree to its root (one subtree for the tail)
@@ -239,7 +280,19 @@ SOURCES = {
         "plonky2_goldibear_torch/csrc/poseidon2_bb.cu",
         "plonky2_goldibear_tpu/ops/poseidon2_bb.py:161",
         "p2_merkle_levels"),
+    # no Pallas kernel: the JAX package's Keccak is a jnp program
+    "keccak_rows": ("plonky2_goldibear_torch/csrc/keccak.cu",
+                    "plonky2_goldibear_tpu/hash/keccak_device.py:85",
+                    "keccak_rows"),
+    "keccak_merkle_levels": (
+        "plonky2_goldibear_torch/csrc/keccak.cu",
+        "plonky2_goldibear_tpu/hash/keccak_device.py:85",
+        "keccak_merkle_levels"),
+    "keccak_permute": ("plonky2_goldibear_torch/csrc/keccak.cu",
+                       "plonky2_goldibear_tpu/hash/keccak_device.py:85",
+                       "keccak_permute"),
 }
+KECCAK_COUNTERS = ("keccak_rows", "keccak_merkle_levels", "keccak_permute")
 
 
 # a launch counter -> its kernel
@@ -282,14 +335,19 @@ def _cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
 
 def _compare(a, b):
     """(mismatches, max |a - b|) of two field tensors as canonical u64
-    values (a BabyBear tensor is int32, a Goldilocks one int64)."""
+    values (a BabyBear tensor is int32, a Goldilocks one int64), or of two
+    byte tensors (uint8: Keccak digests) as bytes."""
     import numpy as np
     import torch
 
     from plonky2_goldibear_torch.field import bb, gl
 
-    F = bb if a.dtype == torch.int32 else gl
-    x, y = F.to_ints(a), F.to_ints(b)
+    if a.dtype == torch.uint8:
+        x = a.cpu().numpy().astype(np.uint64)
+        y = b.cpu().numpy().astype(np.uint64)
+    else:
+        F = bb if a.dtype == torch.int32 else gl
+        x, y = F.to_ints(a), F.to_ints(b)
     if x.shape != y.shape:
         return -1, float("inf")
     bad = x != y
@@ -445,18 +503,31 @@ def _timed_proves(prove, reps, label, failures, counters):
     return proofs, times, median_phases, launches, prof
 
 
-def _built(make, config, label, calls, timings=None, spec=None):
+def _recorded(calls, label, fn):
+    """fn(), with the kernel calls it makes in ``calls[label]``."""
+    from plonky2_goldibear_torch import ops
+
+    ops.calls = []
+    try:
+        return fn()
+    finally:
+        calls[label], ops.calls = ops.calls, None
+
+
+def _built(make, config, label, calls, timings=None, spec=None,
+           hasher=None):
     """(data, inputs, gadgets s, build s, launches): the circuit of ``make``
-    built on the card over the field of ``spec`` (Goldilocks by default),
-    the kernel calls of the build in ``calls[label]`` and its launches
-    counted (the counts set to 0 just before it)."""
+    built on the card over the field of ``spec`` (Goldilocks by default)
+    with ``hasher`` (the field's own by default), the kernel calls of the
+    build in ``calls[label]`` and its launches counted (the counts set to
+    0 just before it)."""
     import torch
 
     from plonky2_goldibear_torch import ops
     from plonky2_goldibear_torch.field import host
     from plonky2_goldibear_torch.plonk.builder import CircuitBuilder
 
-    b = CircuitBuilder(config, spec or host.GOLDILOCKS)
+    b = CircuitBuilder(config, spec or host.GOLDILOCKS, hasher=hasher)
     t0 = time.perf_counter()
     inputs = make(b)
     gadgets_s = time.perf_counter() - t0
@@ -735,7 +806,7 @@ def phase_bb_recursion(inner, inner_proof, report, failures, calls,
     import numpy as np
     import torch
 
-    from plonky2_goldibear_torch import circuits, ops
+    from plonky2_goldibear_torch import circuits
     from plonky2_goldibear_torch.field import bb, host
     from plonky2_goldibear_torch.iop.generator import NonRandomRng
     from plonky2_goldibear_torch.iop.witness import PartialWitness
@@ -753,13 +824,6 @@ def phase_bb_recursion(inner, inner_proof, report, failures, calls,
     rec = report.setdefault("bb_recursive", {})
     expect = functools.partial(_expect, rec, failures)
     rejects = functools.partial(_rejects, failures)
-
-    def recorded(label, fn):
-        ops.calls = []
-        try:
-            return fn()
-        finally:
-            calls[label], ops.calls = ops.calls, None
 
     # -- the BB outer over the 2^12 chain's proof: one build --------------
     holder, timings = {}, {}
@@ -794,7 +858,7 @@ def phase_bb_recursion(inner, inner_proof, report, failures, calls,
           + f", witgen_s {witgen_s:.4f}")
 
     # the warm-up prove records the kernel calls; 3 timed, 1 profiled
-    recorded("prove", lambda: prover.prove(circuit, device="cuda"))
+    _recorded(calls, "prove", lambda: prover.prove(circuit, device="cuda"))
     proofs, times, phases, launches, prof = _timed_proves(
         lambda t: prover.prove(circuit, device="cuda", timings=t), 3,
         label, failures, bb_kernels)
@@ -821,7 +885,8 @@ def phase_bb_recursion(inner, inner_proof, report, failures, calls,
         pw = PartialWitness()
         pw.set_targets(ins, values)
         rng = NonRandomRng(1)
-        proof = recorded(f"{name}_prove", lambda: data.prove(pw, rng=rng))
+        proof = _recorded(calls, f"{name}_prove",
+                          lambda: data.prove(pw, rng=rng))
         arrays, meta = read_fixture(os.path.join(ROOT, DATA.format(
             name + ".npz")))
         ok = {"meta": circuit_meta(data, "babybear") == meta,
@@ -835,6 +900,130 @@ def phase_bb_recursion(inner, inner_proof, report, failures, calls,
         data.verify(proof)
         rejects(data, proof, name, _bump_wire(1, bb.P))
         made.append((name, proof, data.verifier_only, data.common))
+
+
+def phase_keccak(inner, inner_proof, report, failures, calls,
+                 made) -> dict:
+    """Phase 9 (see the module docstring): the Keccak config.  The small
+    circuit against its JAX fixture, then the Keccak outer over ``inner``
+    (phase 6's outer ``CircuitData``) and ``inner_proof``.  ``calls`` gets
+    the kernel calls of each build and prove, ``made`` each (label, proof,
+    verifier data, common data) for phase 5.  Returns the launches of one
+    Keccak outer prove."""
+    import numpy as np
+    import torch
+
+    from plonky2_goldibear_torch import circuits, ops
+    from plonky2_goldibear_torch.field import gl
+    from plonky2_goldibear_torch.hash import keccak_hasher
+    from plonky2_goldibear_torch.iop.generator import NonRandomRng
+    from plonky2_goldibear_torch.iop.witness import PartialWitness
+    from plonky2_goldibear_torch.plonk import prover
+    from plonky2_goldibear_torch.plonk import serialization as ser
+    from plonky2_goldibear_torch.plonk.circuit_data import (circuit_meta,
+                                                            read_fixture)
+    from plonky2_goldibear_torch.plonk.config import CircuitConfig
+    from plonky2_goldibear_torch.plonk.proof import (PROOF_PHASES,
+                                                     flatten_proof)
+    from plonky2_goldibear_torch.recursion import recursive_verifier as rv
+
+    rec = report.setdefault("keccak", {})
+    expect = functools.partial(_expect, rec, failures)
+    rejects = functools.partial(_rejects, failures)
+    kernels = ("ntt",) + KECCAK_COUNTERS
+
+    def flip_cap_byte(proof):
+        cap = proof.proof.wires_cap
+        cap[0] = bytes([cap[0][0] ^ 1]) + cap[0][1:]
+
+    # -- the small circuit (x^31, 8 PoW bits) against the JAX fixture -----
+    data, x, *_ = _built(circuits.keccak_pow31,
+                         circuits.keccak_pow31_config(CircuitConfig),
+                         "keccak_pow31_build", calls, hasher=keccak_hasher)
+    pw = PartialWitness()
+    pw.set_target(x, circuits.KECCAK_POW31_INPUT)
+    rng = NonRandomRng(1)
+    ops.reset_launches()
+    proof = _recorded(calls, "keccak_pow31_prove",
+                      lambda: data.prove(pw, rng=rng))
+    small_launches = ops.launch_counts()
+    arrays, meta = read_fixture(os.path.join(ROOT, DATA.format(
+        "keccak_pow31.npz")))
+    common_j = ser.read_common_circuit_data(_read_bin(
+        "keccak_pow31_common.bin"))
+    proof_j = ser.read_proof_with_public_inputs(
+        _read_bin("keccak_pow31_proof.bin"), common_j, hasher=keccak_hasher)
+    ok = {"meta": circuit_meta(data, "goldilocks") == meta,
+          **_common_equal(data.common, common_j),
+          "constants_sigmas": bool(np.array_equal(
+              gl.to_ints(data.prover_only.constants_sigmas_values),
+              arrays["constants_sigmas"])),
+          "cap_and_digest_bytes": data.verifier_only
+          == ser.read_verifier_only_circuit_data(
+              _read_bin("keccak_pow31_verifier.bin"), hasher=keccak_hasher),
+          "counter": rng.counter == int(arrays["proof_counter"]),
+          # the smallest PoW witness, ground by the hash-onion kernel
+          "pow_grind_on_the_kernel": small_launches["keccak_permute"] > 0}
+    got, want = flatten_proof(proof), flatten_proof(proof_j)
+    ok.update({f"proof_{k}": bool(np.array_equal(got[k], want[k]))
+               for k in PROOF_PHASES})
+    expect("keccak_pow31 on the card vs the JAX fixture", ok)
+    data.verify(proof)
+    data.verify(proof_j)
+    rejects(data, proof_j, "keccak_pow31 (the JAX proof)", flip_cap_byte)
+    made.append(("keccak_pow31", proof, data.verifier_only, data.common))
+
+    # -- the Keccak outer over phase 6's Poseidon outer: one build --------
+    holder, timings = {}, {}
+    outer, _, gadgets_s, build_s, build_launches = _built(
+        lambda b: holder.update(t=circuits.recursive_verifier(
+            b, inner.common)), inner.common.config, "keccak_outer_build",
+        calls, timings, hasher=keccak_hasher)
+    failures.extend(f"kernel {k} was not launched by the Keccak outer's "
+                    "build" for k in ("ntt", "keccak_rows",
+                                      "keccak_merkle_levels")
+                    if build_launches.get(k, 0) <= 0)
+    proof_t, vk_t = holder["t"]
+    want = ser.read_common_circuit_data(_read_bin(
+        "recursive_keccak_gl_2e12_common.bin"))
+    ok = {"degree_bits": outer.common.degree_bits == want.degree_bits,
+          **_common_equal(outer.common, want),
+          "cap_and_digest_bytes": outer.verifier_only
+          == ser.read_verifier_only_circuit_data(
+              _read_bin("recursive_keccak_gl_2e12_verifier.bin"),
+              hasher=keccak_hasher)}
+    pw = PartialWitness()
+    rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
+    rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
+    t0 = time.perf_counter()
+    circuit = outer.circuit(pw, NonRandomRng(1))
+    torch.cuda.synchronize()
+    witgen_s = time.perf_counter() - t0
+    ok["public_inputs"] = circuit.public_inputs == \
+        list(inner_proof.public_inputs)
+    label = f"Keccak outer 2^{outer.common.degree_bits}"
+    expect(f"{label} built by the port vs the JAX build", ok)
+    print(f"{label}: gadgets_s {gadgets_s:.4f}, build_s {build_s:.4f} "
+          + json.dumps({k: round(v, 4) for k, v in timings.items()})
+          + f", witgen_s {witgen_s:.4f}")
+
+    # the warm-up prove records the kernel calls; 3 timed, 1 profiled
+    _recorded(calls, "keccak_outer_prove",
+              lambda: prover.prove(circuit, device="cuda"))
+    proofs, times, phases, launches, prof = _timed_proves(
+        lambda t: prover.prove(circuit, device="cuda", timings=t), 3,
+        label, failures, kernels)
+    proof = proofs[-1]
+    outer.verify(proof)
+    rejects(outer, proof, label, flip_cap_byte)
+    rejects(outer, proof, label, _bump_wire(0, gl.P))
+    made.append(("goldilocks_keccak_recursive_2e12", proof,
+                 outer.verifier_only, outer.common))
+    rec.update(gadgets_s=gadgets_s, build_s=build_s, build_phases=timings,
+               build_launches=build_launches, witgen_s=witgen_s,
+               prove_s=times, phases=phases, launches=launches,
+               profile=prof, degree_bits=outer.common.degree_bits)
+    return launches
 
 
 def phase_verify(made, failures) -> dict:
@@ -886,11 +1075,14 @@ def phase_verify(made, failures) -> dict:
     return verify_s
 
 
-def phase_recursion(inner, inner_proof, report, failures, calls) -> list:
+def phase_recursion(inner, inner_proof, report, failures, calls,
+                    mains) -> list:
     """Phase 6 (see the module docstring): the outer circuit over ``inner``
     (a GL 2^12 ``CircuitData``) and ``inner_proof``; ``calls`` gets the
-    kernel calls of one build ("build") and one prove ("prove").  Returns
-    [(label, outer proof, verifier data, common data)] for phase 5."""
+    kernel calls of one build ("build") and one prove ("prove"), and
+    ``mains["recursive"]`` the outer ``CircuitData`` and its proof (the
+    inner of phase 9).  Returns [(label, outer proof, verifier data,
+    common data)] for phase 5."""
     import copy
 
     import torch
@@ -906,7 +1098,7 @@ def phase_recursion(inner, inner_proof, report, failures, calls) -> list:
 
     rec = {"gadgets_s": [], "build_s": [], "build_phases": [],
            "witgen_s": []}
-    for rep in range(3):
+    for rep in range(BUILD_REPS):
         b = CircuitBuilder(inner.common.config)
         t0 = time.perf_counter()
         proof_t, vk_t = circuits.recursive_verifier(b, inner.common)
@@ -955,11 +1147,12 @@ def phase_recursion(inner, inner_proof, report, failures, calls) -> list:
     med = {k: statistics.median(rec[k])
            for k in ("gadgets_s", "build_s", "witgen_s")}
     for k, v in med.items():
-        print(f"recursive {k} {v:.4f} (median of 3: "
+        print(f"recursive {k} {v:.4f} (median of {BUILD_REPS}: "
               f"{[round(t, 4) for t in rec[k]]})")
-    print("recursive build phases (s, median of 3): " + json.dumps(
-        {k: round(statistics.median(p[k] for p in rec["build_phases"]), 4)
-         for k in rec["build_phases"][0]}))
+    phases = {k: round(statistics.median(p[k] for p in rec["build_phases"]),
+                       4) for k in rec["build_phases"][0]}
+    print(f"recursive build phases (s, median of {BUILD_REPS}): "
+          + json.dumps(phases))
     print("recursive build launches: " + json.dumps(
         {k: v for k, v in build_launches.items() if v}))
 
@@ -1011,6 +1204,7 @@ def phase_recursion(inner, inner_proof, report, failures, calls) -> list:
         failures.append("recursive: a tampered copy was accepted")
     except VerificationError:
         print("recursive 2^12 proof: verified; tampered copy rejected")
+    mains["recursive"] = (outer, proof)
     report["recursive"] = dict(
         rec, equal=ok, prove_s=times, phases=median_phases,
         launches=run_counts, profile=prof,
@@ -1032,6 +1226,7 @@ def main() -> int:
     from plonky2_goldibear_torch import ops
     from plonky2_goldibear_torch.field import bb, gl
     from plonky2_goldibear_torch.ops import _build
+    from plonky2_goldibear_torch.ops import keccak as K_kec
     from plonky2_goldibear_torch.ops import ntt as K_ntt
     from plonky2_goldibear_torch.ops import ntt_bb as K_nttb
     from plonky2_goldibear_torch.ops import poseidon2_bb as K_p2
@@ -1052,6 +1247,14 @@ def main() -> int:
 
     failures = []
     report = {}
+    script_t0 = time.perf_counter()
+
+    def phase_start(name):
+        """Print and keep the script's seconds when phase ``name`` starts."""
+        t = time.perf_counter() - script_t0
+        report.setdefault("phase_start_s", {})[name] = t
+        print(f"phase {name} starts at {t:.1f} s", flush=True)
+
     dev = torch.device("cuda", 0)
     card = _smi("name,power.limit")
     print(card)
@@ -1071,6 +1274,7 @@ def main() -> int:
                       field_muls * MULS_PER_FIELD_MUL / mul_rate * 1e3)
 
     # -- phase 2: build ----------------------------------------------------
+    phase_start("2")
     t0 = time.perf_counter()
     secs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
@@ -1081,6 +1285,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     # -- phase 3: each kernel against its plain version ----------------------
+    phase_start("3")
     g = torch.Generator().manual_seed(2024)
 
     def rand(*shape):
@@ -1094,7 +1299,10 @@ def main() -> int:
     checks = {}
 
     def check(key, name, kernel_fn, plain_fn, reps, nbytes, field_muls,
-              main=False, sboxes=None):
+              main=False, sboxes=None, int_ops=None):
+        """The kernel against its plain version, timed, with its bound:
+        the bytes, or the field multiplies (``int_ops``: the 32-bit
+        operations) at the card's 32-bit integer rate."""
         ops.reset_launches()
         out = kernel_fn()
         torch.cuda.synchronize()
@@ -1107,11 +1315,12 @@ def main() -> int:
                 key=lambda t: t[0])
         ms = _cuda_ms(kernel_fn, reps)
         plain_ms = _cuda_ms(plain_fn, 1, warm_up=False)
-        b_ms, b_by = bound(nbytes, field_muls)
+        b_ms, b_by = bound(nbytes, field_muls) if int_ops is None else \
+            larger(nbytes / MEM_BYTES_PER_S * 1e3, int_ops / mul_rate * 1e3)
         line = dict(kernel=name, mismatches=mism, max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     launches_per_call=launched, bytes=nbytes,
-                    field_muls=field_muls, sboxes=sboxes)
+                    field_muls=field_muls, sboxes=sboxes, int_ops=int_ops)
         print(f"check {key}: " + json.dumps(line))
         report.setdefault("checks", {})[key] = line
         if mism != 0:
@@ -1198,11 +1407,60 @@ def main() -> int:
     except Exception as e:
         failures.append(f"BabyBear kernel checks: {type(e).__name__}: {e}")
 
+    # the Keccak kernels: rows at the rate's edges and the prove's lengths,
+    # and the bound's counts of each entry point
+    def rand_bytes(*shape):
+        return torch.randint(0, 256, shape, generator=g,
+                             dtype=torch.uint8).to(dev)
+
+    def keccak_rows_check(key, n, length, main=False):
+        rows = rand_bytes(n, length)
+        blocks = (length + KECCAK_RATE) // KECCAK_RATE
+        check(key, "keccak_rows", lambda: K_kec.hash_rows(rows),
+              lambda: K_kec.hash_rows_plain(rows), 10,
+              n * (length + KECCAK_DIGEST), 0, main=main,
+              int_ops=n * blocks * KECCAK_F_OPS)
+
+    def keccak_levels_check(key, n, layers, main=False):
+        d0 = rand_bytes(n, KECCAK_DIGEST)
+        parents = n - (n >> layers)
+        check(key, "keccak_merkle_levels",
+              lambda: K_kec.merkle_levels(d0, layers),
+              lambda: K_kec.merkle_levels_plain(d0, layers), 10,
+              (n + parents) * KECCAK_DIGEST, 0, main=main,
+              int_ops=parents * KECCAK_F_OPS)
+
+    def keccak_permute_check(key, n, main=False):
+        st = rand(n, 12)
+        # three hashes a state: a fourth only after a word >= p, about
+        # 12 in 2^32 words
+        check(key, "keccak_permute", lambda: K_kec.permute(st),
+              lambda: K_kec.permute_plain(st), 10, 2 * st.numel() * 8, 0,
+              main=main, int_ops=3 * n * KECCAK_F_OPS)
+
+    try:
+        for length in KECCAK_LENGTHS:
+            keccak_rows_check(f"keccak_rows_1000x{length}", 1000, length)
+        keccak_rows_check("keccak_rows_2^15x1080", 1 << 15, 1080, main=True)
+        keccak_levels_check("keccak_merkle_levels_2^15_to_cap16", 1 << 15,
+                            11, main=True)
+        keccak_permute_check("keccak_permute_2^17", KECCAK_PERMUTE_STATES,
+                             main=True)
+        keccak_permute_check("keccak_permute_ragged_1000", 1000)
+    except Exception as e:
+        failures.append(f"Keccak kernel checks: {type(e).__name__}: {e}")
+
     # every path kernel at each shape one 2^12 prove of its field launches
     # it on, recorded from that prove, and the GL Merkle trees of other caps
     def prove_shape_check(call):
         counter, *shape = call
         name, key = KERNEL_OF[counter], _shape_key(call)
+        if counter == "keccak_rows":
+            return keccak_rows_check(key, *shape)
+        if counter == "keccak_merkle_levels":
+            return keccak_levels_check(key, *shape)
+        if counter == "keccak_permute":
+            return keccak_permute_check(key, *shape)
         is_gl = not (counter.startswith("p2_") or counter == "ntt_bb")
         make, es = (rand, 8) if is_gl else (rand_bb, 4)
         if counter in ("ntt", "ntt_bb"):
@@ -1301,6 +1559,7 @@ def main() -> int:
         failures.append(f"prove-shape checks: {type(e).__name__}: {e}")
 
     # -- phase 3b: the probe chains ------------------------------------------
+    phase_start("3b")
     from plonky2_goldibear_torch import probes as runner
     from plonky2_goldibear_torch.ops import probes as K_probe
 
@@ -1310,7 +1569,9 @@ def main() -> int:
     def probe_bound(key, c):
         """Add the probe bound to the check ``c`` (the card-filling rates
         of ``probe_rate``) and print it."""
-        if "bb" in c["kernel"]:
+        if c.get("int_ops") is not None:
+            t_ops = c["int_ops"] / probe_rate["add"]
+        elif "bb" in c["kernel"]:
             t_ops = c["field_muls"] * MULS_PER_FIELD_MUL / probe_rate["mul"]
         elif c["sboxes"] is not None:
             t_ops = c["sboxes"] / probe_rate["sbox"]
@@ -1376,6 +1637,9 @@ def main() -> int:
         # the probe bound of every phase-3 check, from the card-filling rates
         probe_rate.update({s: probe_recs[s]["fill"]["G_ops_per_s"] * 1e9
                            for s in ("gl", "sbox", "mul")})
+        # the add chain's step is half a three-input add: its instructions
+        probe_rate["add"] = probe_recs["add"]["fill"]["G_ops_per_s"] * 1e9 \
+            * PROBES["u32_add"][0]
         for key, c in report["checks"].items():
             if not c["kernel"].startswith("probe_"):
                 probe_bound(key, c)
@@ -1383,6 +1647,7 @@ def main() -> int:
         failures.append(f"probe phase: {type(e).__name__}: {e}")
 
     # -- phase 4: the main path of each field ------------------------------
+    phase_start("4")
     def load(field, bits):
         t0 = time.perf_counter()
         circuit, arrays = load_fixture(bits, device="cuda", field=field)
@@ -1549,7 +1814,8 @@ def main() -> int:
                       circuit.verifier_data(), circuit.common)]
             # the main path at the benchmark size: build, witness, warm-up,
             # 3 timed proves of the finished circuit
-            data, pw, circuit, arrays = built(field, MAIN_BITS, reps=3)
+            data, pw, circuit, arrays = built(field, MAIN_BITS,
+                                              reps=BUILD_REPS)
             for k in build_kernels[field]:
                 if report[f"{field}_build_2e{MAIN_BITS}"]["launches"].get(
                         k, 0) <= 0:
@@ -1635,18 +1901,20 @@ def main() -> int:
             checked.add(call)
 
     # -- phase 6: the recursive verifier over the GL 2^12 chain -------------
+    phase_start("6")
     recursive_calls = {}
     try:
         if "goldilocks" not in mains:
             raise RuntimeError("no GL 2^12 chain proof from phase 4")
         inner, inner_proof = mains["goldilocks"]
         made += phase_recursion(inner, inner_proof, report, failures,
-                                recursive_calls)
+                                recursive_calls, mains)
         check_new_shapes(recursive_calls, "recursive")
     except Exception as e:
         failures.append(f"recursion phase: {type(e).__name__}: {e}")
 
     # -- phase 7: zero knowledge and lookups ---------------------------------
+    phase_start("7")
     zk_calls = {}
     try:
         phase_zk_lookups(report, failures, zk_calls, made)
@@ -1659,6 +1927,7 @@ def main() -> int:
                         f"{e}")
 
     # -- phase 8: BabyBear recursion, the width-24 hash, BB lookups ----------
+    phase_start("8")
     bb_calls = {}
     try:
         if "babybear" not in mains:
@@ -1678,7 +1947,25 @@ def main() -> int:
         failures.append(f"BB recursion shape checks: {type(e).__name__}: "
                         f"{e}")
 
+    # -- phase 9: the Keccak config ------------------------------------------
+    phase_start("9")
+    keccak_calls = {}
+    try:
+        if "recursive" not in mains:
+            raise RuntimeError("no GL recursive proof from phase 6")
+        inner, inner_proof = mains["recursive"]
+        keccak_launches = phase_keccak(inner, inner_proof, report, failures,
+                                       keccak_calls, made)
+        counts.update({k: keccak_launches[k] for k in KECCAK_COUNTERS})
+    except Exception as e:
+        failures.append(f"Keccak phase: {type(e).__name__}: {e}")
+    try:
+        check_new_shapes(keccak_calls, "keccak")
+    except Exception as e:
+        failures.append(f"Keccak shape checks: {type(e).__name__}: {e}")
+
     # -- phase 5: the verifier, on the host ----------------------------------
+    phase_start("5")
     try:
         verify_s = phase_verify(made, failures)
         report["verify_s"] = verify_s
@@ -1709,6 +1996,7 @@ def main() -> int:
     ranking.sort(key=lambda r: -r["excess_ms"])
     report["ranking"] = ranking
     print("rule-2 ranking: " + json.dumps(ranking))
+    phase_start("end")
 
     os.makedirs(os.path.join(ROOT, OUT_DIR), exist_ok=True)
     with open(os.path.join(ROOT, OUT_DIR, "chip_smoke_report.json"),

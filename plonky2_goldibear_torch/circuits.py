@@ -28,6 +28,34 @@ def arith_chain(builder, degree_bits: int):
     return x
 
 
+KECCAK_POW31_INPUT = 3
+
+
+def keccak_pow31(builder):
+    """The Keccak config's test circuit (the JAX package's
+    ``tests/test_keccak_config.py:55-80``): x^31 by 30 ``mul``s, with x and
+    x^31 public.  Built with ``hasher=keccak_hasher`` under
+    ``keccak_pow31_config``.  Returns x; the witness sets x = 3
+    (``KECCAK_POW31_INPUT``)."""
+    x = builder.add_virtual_target()
+    cur = x
+    for _ in range(30):
+        cur = builder.mul(cur, x)
+    builder.register_public_input(x)
+    builder.register_public_input(cur)
+    return x
+
+
+def keccak_pow31_config(config_cls):
+    """``standard_recursion_config_gl()`` with 8 PoW bits, as the JAX test
+    sets it; ``config_cls`` is the builder package's ``CircuitConfig``."""
+    import dataclasses
+
+    base = config_cls.standard_recursion_config_gl()
+    return dataclasses.replace(base, fri_config=dataclasses.replace(
+        base.fri_config, proof_of_work_bits=8))
+
+
 MIX_FIB_STEPS = 30
 MIX_MUL_STEPS = 12
 
@@ -201,7 +229,7 @@ def ext_mix(builder, gd, coset_gate) -> List:
     leaves = [[b.add_const(items[i], j) for j in range(5)] for i in range(4)]
     digests = [b.hash_or_noop(leaf) for leaf in leaves]
     zero = b.zero()
-    width = b.hasher.WIDTH
+    width = b.inner_hasher.WIDTH
     cap = [b.permute(digests[i] + digests[i + 1]
                      + [zero] * (width - 8))[:4] for i in (0, 2)]
     gd.verify_merkle_proof_to_cap_with_cap_index(

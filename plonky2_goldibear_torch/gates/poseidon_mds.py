@@ -47,19 +47,24 @@ class PoseidonMdsGate(Gate):
         return [_MdsGenerator(self, row, spec)]
 
     def eval_unfiltered(self, A, vars):
+        """Each output lane's D coefficients computed before their D
+        constraints, in the JAX gate's order: over ``CircuitExtAlgebra``
+        the order of the ops is the recursive verifier's layout."""
         lw = vars.local_wires
         inputs = [[lw[w] for w in self.wires_input(i)] for i in range(W)]
         out = []
         for r in range(W):
-            for d, w in enumerate(self.wires_output(r)):
+            computed = []
+            for d in range(self.D):
                 acc = None
                 for i in range(W):
                     t = A.mul_base_const(inputs[(i + r) % W][d],
                                          C.MDS_MATRIX_CIRC[i])
                     acc = t if acc is None else A.add(acc, t)
-                acc = A.add(acc, A.mul_base_const(inputs[r][d],
-                                                  C.MDS_MATRIX_DIAG[r]))
-                out.append(A.sub(lw[w], acc))
+                computed.append(A.add(acc, A.mul_base_const(
+                    inputs[r][d], C.MDS_MATRIX_DIAG[r])))
+            out += [A.sub(lw[w], c)
+                    for w, c in zip(self.wires_output(r), computed)]
         return out
 
 

@@ -12,8 +12,9 @@ Element-exact port of the reference semantics
 
 The transcript is tiny and sequential, so it runs on the host between the
 device phases, as in the reference.  It works on canonical ints with the
-hasher's host permutation: Poseidon-GL (width 12, rate 8) or Poseidon2-BB
-(width 16, rate 8).
+hasher's host permutation: Poseidon-GL (width 12, rate 8), Poseidon2-BB
+(width 16, rate 8) or Keccak's hash-onion (width 12, rate 8), whose byte
+digests are observed as 7-byte little-endian chunks.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from ..field import host
-from . import poseidon_gl
+from . import keccak_hasher, poseidon_gl
 
 
 class Challenger:
@@ -50,8 +51,13 @@ class Challenger:
         for e in elements:
             self.observe_elements(list(e))
 
-    def observe_hash(self, hash_elements: Sequence[int]):
-        self.observe_elements(list(hash_elements))
+    def observe_hash(self, digest):
+        """A digest: its field elements, or a byte digest's 7-byte
+        little-endian chunks (reference hash_types.rs:259-286,
+        GenericHashOut::to_vec)."""
+        if isinstance(digest, bytes):
+            digest = keccak_hasher.digest_to_elements(digest)
+        self.observe_elements(list(digest))
 
     def observe_cap(self, cap: Sequence[Sequence[int]]):
         for h in cap:

@@ -6,9 +6,10 @@ the cap (the level of 2^cap_height nodes) replaces the root, and a proof is
 the sibling chain up to (excluding) the cap.  One dense digest tensor per
 level in natural node order; on a CUDA tensor the leaf digests come from
 the leaf-sponge kernel and the levels from the Merkle-level kernel of the
-hasher (``hash/poseidon_gl.py`` or ``hash/poseidon2_bb.py``; digests of 4
-or 8 elements).  ``verify_merkle_proof_to_cap`` is the verifier's check,
-on the host.
+hasher (``hash/poseidon_gl.py`` or ``hash/poseidon2_bb.py``, digests of 4
+or 8 elements; ``hash/keccak_hasher.py``, digests of 25 bytes, ``bytes``
+on the host).  ``verify_merkle_proof_to_cap`` is the verifier's check, on
+the host.
 """
 
 from __future__ import annotations
@@ -43,8 +44,18 @@ class MerkleTree:
         self.levels = build_levels(leaves, self.num_layers, hasher)
         self.cap = self.levels[-1]
 
-    def cap_host(self) -> List[List[int]]:
-        return [[int(x) for x in row] for row in self.F.to_ints(self.cap)]
+    def _digests_host(self, digests: torch.Tensor) -> list:
+        """Digests (..., d) on the host: ``bytes`` of a byte hasher, else
+        lists of ints."""
+        if getattr(self.hasher, "DIGEST_IS_BYTES", False):
+            rows = digests.cpu().numpy()
+            return [bytes(row.tobytes()) for row in rows.reshape(
+                -1, rows.shape[-1])]
+        return [[int(x) for x in row] for row in
+                self.F.to_ints(digests).reshape(-1, digests.shape[-1])]
+
+    def cap_host(self) -> list:
+        return self._digests_host(self.cap)
 
     def prove_batch(self, leaf_indices: Sequence[int]) -> List[List]:
         """Sibling chains for many leaves, one gather per level and one
@@ -57,8 +68,10 @@ class MerkleTree:
         for lv in self.levels[:self.num_layers]:
             gathers.append(lv[idx ^ 1])
             idx = idx >> 1
-        flat = self.F.to_ints(torch.stack(gathers, dim=1))  # (nq, layers, d)
-        return [[[int(x) for x in sib] for sib in chain] for chain in flat]
+        flat = self._digests_host(torch.stack(gathers, dim=1))
+        layers = self.num_layers
+        return [flat[q * layers:(q + 1) * layers]
+                for q in range(len(leaf_indices))]
 
     def leaf_batch(self, leaf_indices: Sequence[int]) -> List[List[int]]:
         idx = torch.as_tensor(list(leaf_indices), dtype=torch.int64,
@@ -72,13 +85,14 @@ def verify_merkle_proof_to_cap(leaf_data: Sequence[int], leaf_index: int,
                                siblings: Sequence[Sequence[int]],
                                hasher=poseidon_gl) -> bool:
     """Whether the sibling chain takes the leaf to its cap node, on the
-    host (reference hash/merkle_proofs.rs:54-80)."""
+    host (reference hash/merkle_proofs.rs:54-80); digests are lists of
+    ints, or ``bytes`` for a byte hasher."""
     current = hasher.hash_or_noop_host(list(leaf_data))
     index = leaf_index
     for sib in siblings:
         if index & 1:
-            current = hasher.two_to_one_host(list(sib), current)
+            current = hasher.two_to_one_host(sib, current)
         else:
-            current = hasher.two_to_one_host(current, list(sib))
+            current = hasher.two_to_one_host(current, sib)
         index >>= 1
     return index < len(cap) and list(current) == list(cap[index])

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain torch
 version: the NTT of either field (``ntt``, ``ntt_bb``), the Poseidon-GL
 permutation, leaf sponge and Merkle levels (``poseidon_gl``) and the
-Poseidon2-BabyBear ones (``poseidon2_bb``), and the dependent-chain probes
-of one field or integer operation (``probes``)."""
+Poseidon2-BabyBear ones (``poseidon2_bb``), Keccak-256 rows, Merkle
+levels and hash-onion (``keccak``), and the dependent-chain probes of one
+field or integer operation (``probes``)."""
 
 from typing import Dict
 
@@ -17,9 +18,9 @@ def record(counter: str, *shape: int) -> None:
 
 
 def _modules():
-    from . import ntt, ntt_bb, poseidon2_bb, poseidon_gl, probes
+    from . import keccak, ntt, ntt_bb, poseidon2_bb, poseidon_gl, probes
 
-    return ntt, ntt_bb, poseidon_gl, poseidon2_bb, probes
+    return ntt, ntt_bb, poseidon_gl, poseidon2_bb, keccak, probes
 
 
 def reset_launches() -> None:
@@ -30,7 +31,7 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset."""
-    ntt, ntt_bb, poseidon_gl, poseidon2_bb, probes = _modules()
+    ntt, ntt_bb, poseidon_gl, poseidon2_bb, keccak, probes = _modules()
     return {"ntt": ntt.launches, "ntt_bb": ntt_bb.launches,
             **poseidon_gl.launches, **poseidon2_bb.launches,
-            **probes.launches}
+            **keccak.launches, **probes.launches}

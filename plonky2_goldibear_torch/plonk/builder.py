@@ -15,8 +15,12 @@ under a zero-knowledge config, the blinding rows, lays out the selectors
 (the lookup selectors too), constants and sigmas, commits the
 constants/sigmas on the device with the port's ``PolynomialBatch`` (the
 NTT, leaf-sponge and Merkle kernels on the card), collects the witness
-generators and hashes the circuit digest.  What this slice does not carry
-raises ``NotImplementedError`` naming its ROADMAP Queue 1 item.
+generators and hashes the circuit digest.  The hasher is split in two as
+in the reference's configs: ``hasher`` commits and runs the transcript
+(the field's own, or ``hash.keccak_hasher`` for Goldilocks: the Keccak
+config), ``inner_hasher`` (the field's own) serves every hashing gadget
+and the public-input hash.  What this slice does not carry raises
+``NotImplementedError`` naming its ROADMAP Queue 1 item.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..gates.extension_gates import ArithmeticExtensionGate, MulExtensionGate
 from ..gates.lookup_gates import LookupGate, LookupTableGate
 from ..gates.poseidon import PoseidonGate
 from ..gates.poseidon2_bb_gate import Poseidon2BabyBearGate
+from ..hash import keccak_hasher
 from ..iop import generator as gen
 from ..iop import target as tgt
 from ..utils.context_tree import ContextTree
@@ -51,6 +56,17 @@ from .prover import phase
 class GateInstance:
     gate: object
     constants: List[int]
+
+
+def _hasher_name(hasher) -> str:
+    return getattr(hasher, "__name__", repr(hasher))
+
+
+def _digest_elements(digest) -> List[int]:
+    """A digest as field elements (a byte digest's 7-byte chunks)."""
+    if isinstance(digest, bytes):
+        return keccak_hasher.digest_to_elements(digest)
+    return list(digest)
 
 
 def _not_ported(what: str, item):
@@ -81,8 +97,8 @@ class CircuitBuilder:
                  spec: host.FieldSpec = host.GOLDILOCKS, hasher=None):
         self.config = config
         self.spec = spec
-        _, self.F, self.hasher = FIELDS[spec.name]
-        self._check_hasher(hasher)
+        _, self.F, self.inner_hasher = FIELDS[spec.name]
+        self.hasher = self._commit_hasher(hasher)
         # the circuit digest's domain separator (circuit_builder.rs:1301)
         self.domain_separator: List[int] = []
         # cyclic recursion's goal (circuit_builder.rs:1332): item 4b
@@ -110,28 +126,38 @@ class CircuitBuilder:
         self.lookup_rows: List[Tuple[int, int, int]] = []
         self.context_tree = ContextTree()
 
-    def _check_hasher(self, hasher):
-        """The builder's hasher commits and runs the transcript: its own
-        field's (Keccak waits for item 7)."""
-        if hasher is None or hasher is self.hasher:
-            return
+    def _commit_hasher(self, hasher):
+        """The hasher that commits and runs the transcript: the field's
+        own (None), or Keccak (the reference has a Keccak config over
+        Goldilocks only)."""
+        if hasher is None or hasher is self.inner_hasher:
+            return self.inner_hasher
+        name = _hasher_name(hasher)
         if getattr(hasher, "IN_CIRCUIT_ONLY", False):
-            raise ValueError(f"{hasher.__name__} hashes in the circuit "
-                             "only: pass it to a hashing gadget")
-        raise _not_ported(f"hasher {getattr(hasher, '__name__', hasher)}", 7)
+            raise ValueError(f"{name} hashes in the circuit only: pass it "
+                             "to a hashing gadget")
+        if hasher is not keccak_hasher:
+            raise ValueError(f"unknown hasher {name}")
+        if self.spec.name != "goldilocks":
+            raise ValueError(f"{name} has no config over {self.spec.name}")
+        return hasher
 
     def _gadget_hasher(self, hasher):
-        """The hasher of a hashing gadget: the builder's own by default, or
+        """The hasher of a hashing gadget: the inner hasher by default, or
         an in-circuit hasher of the builder's field (the width-24 Poseidon2
-        over BabyBear)."""
-        if hasher is None or hasher is self.hasher:
-            return self.hasher
+        over BabyBear).  Keccak is no algebraic hasher: no gate computes
+        it."""
+        if hasher is None or hasher is self.inner_hasher:
+            return self.inner_hasher
+        name = _hasher_name(hasher)
         if getattr(hasher, "IN_CIRCUIT_ONLY", False):
             if hasher.F.SPEC.name != self.spec.name:
-                raise ValueError(f"{hasher.__name__} is a "
-                                 f"{hasher.F.SPEC.name} hasher")
+                raise ValueError(f"{name} is a {hasher.F.SPEC.name} hasher")
             return hasher
-        raise _not_ported(f"hasher {getattr(hasher, '__name__', hasher)}", 7)
+        if hasher is keccak_hasher:
+            raise ValueError(f"{name} is not algebraic: it cannot hash in "
+                             "the circuit")
+        raise ValueError(f"unknown hasher {name}")
 
     # -- targets -------------------------------------------------------------
 
@@ -693,7 +719,7 @@ class CircuitBuilder:
         for Goldilocks, Poseidon2 width 16 for BabyBear, or the width-24
         Poseidon2 ``hasher``)."""
         hasher = self._gadget_hasher(hasher)
-        if hasher is not self.hasher:
+        if hasher is not self.inner_hasher:
             g = hasher.permutation_gate(self.config)
         elif self.spec.name == "goldilocks":
             g = PoseidonGate()
@@ -881,10 +907,11 @@ class CircuitBuilder:
 
         with phase(timings, "digest", dev):
             # cap, the domain separator's hash and degree_bits
-            # (circuit_builder.rs:1300-1320)
+            # (circuit_builder.rs:1300-1320), byte digests as elements
             circuit_digest = self.hasher.hash_no_pad_host(
-                [x for row in cap for x in row]
-                + self._hash_pad(self.domain_separator) + [degree_bits])
+                [x for row in cap for x in _digest_elements(row)]
+                + _digest_elements(self._hash_pad(self.domain_separator))
+                + [degree_bits])
 
         common = CommonCircuitData(
             config=config, fri_params=fri_params, gates=gates,
@@ -917,9 +944,10 @@ class CircuitBuilder:
             constants_sigmas_cap=cap, circuit_digest=circuit_digest)
         return CircuitData(common=common, prover_only=prover_only,
                            verifier_only=verifier_only, device=dev,
-                           F=self.F, hasher=self.hasher)
+                           F=self.F, hasher=self.hasher,
+                           inner_hasher=self.inner_hasher)
 
-    def _hash_pad(self, inputs: List[int]) -> List[int]:
+    def _hash_pad(self, inputs: List[int]):
         """pad10*1, then hash (plonk/config.rs:58-66)."""
         padded = list(inputs) + [1]
         rate = self.hasher.RATE

@@ -16,8 +16,13 @@ the circuit and its witness on one device.  Two routes make one:
   JAX package (``tests/test_torch_prove.py --write-fixtures``).
 
 The field name ("goldilocks", the default, or "babybear") picks the field
-module, its extension and the hasher once: Goldilocks with Poseidon-GL, or
-BabyBear (Montgomery form) with Poseidon2-BB.
+module, its extension and its algebraic hasher once: Goldilocks with
+Poseidon-GL, or BabyBear (Montgomery form) with Poseidon2-BB.  A circuit
+carries two hashers, as the reference's configs do: ``hasher`` commits the
+Merkle trees and runs the transcript, ``inner_hasher`` (always the field's
+own) hashes in the circuit and hashes the public inputs.  They differ
+only under the Keccak config (``hash/keccak_hasher.py``, Goldilocks),
+whose digests are ``bytes``.
 
 ``CircuitData.verify`` checks a proof with the verifier of
 ``plonk/verifier.py`` (``Circuit.verifier_data`` gives a loaded circuit's
@@ -30,7 +35,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,7 +45,7 @@ from ..field import bb, ext, gl, host
 from ..fri.oracle import PolynomialBatch
 from ..gates import gate_from_id
 from ..gates.selectors import SelectorsInfo
-from ..hash import poseidon2_bb, poseidon_gl
+from ..hash import keccak_hasher, poseidon2_bb, poseidon_gl
 from ..iop.generator import Rng, generate_partial_witness
 from . import prover
 from .config import (CircuitConfig, FriConfig, FriParams,
@@ -49,6 +54,14 @@ from .witness_transfer import WitnessTransfer
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
+
+# a digest: field elements, or the bytes of a byte hasher's (Keccak)
+Digest = Union[List[int], bytes]
+
+
+def _digest_copy(d: Digest) -> Digest:
+    return d if isinstance(d, bytes) else list(d)
+
 
 # FRI oracle indices (reference plonk/plonk_common.rs:19-41)
 ORACLE_CONSTANTS_SIGMAS = 0
@@ -60,8 +73,9 @@ ORACLE_QUOTIENT = 3
 # plonk_common.rs:24-40)
 ORACLE_BLINDING = [False, True, True, True]
 
-# field name -> (spec, field module, hasher of the Merkle trees and the
-# transcript)
+# field name -> (spec, field module, its algebraic hasher: the inner
+# hasher, and the Merkle and transcript hasher unless a circuit names
+# another)
 FIELDS = {
     "goldilocks": (host.GOLDILOCKS, gl, poseidon_gl),
     "babybear": (host.BABYBEAR, bb, poseidon2_bb),
@@ -81,7 +95,9 @@ def fixture_path(degree_bits: int, field: str = "goldilocks",
 
 
 def hasher_of(spec: host.FieldSpec):
-    """The hasher of the Merkle trees and the transcript of a field."""
+    """The algebraic hasher of a field: the inner hasher of every circuit
+    over it, and the Merkle and transcript hasher unless it names
+    another."""
     for fspec, _, hasher in FIELDS.values():
         if fspec == spec:
             return hasher
@@ -224,19 +240,21 @@ class CommonCircuitData:
 @dataclass
 class Circuit:
     """A circuit with its witness, on one device, with the field module
-    ``F``, its extension ``E`` and the ``hasher`` it is proved with;
-    ``cache`` holds the prover's circuit-static tensors (shared by the
-    circuits one ``CircuitData`` makes)."""
+    ``F``, its extension ``E``, the ``hasher`` of its commitments and
+    transcript and the ``inner_hasher`` of its public inputs; ``cache``
+    holds the prover's circuit-static tensors (shared by the circuits one
+    ``CircuitData`` makes)."""
     common: CommonCircuitData
     constants_sigmas_values: torch.Tensor     # (num_preprocessed, degree)
     constants_sigmas_commitment: PolynomialBatch
     wires: torch.Tensor               # (num_wires, degree) field tensor
     public_inputs: List[int]
-    circuit_digest: List[int]
+    circuit_digest: Digest
     random_wire: Optional[Tuple[int, int]]   # (row, column)
     device: torch.device
     F: object = gl
     hasher: object = poseidon_gl
+    inner_hasher: object = poseidon_gl
     cache: Dict = field(default_factory=dict, repr=False, compare=False)
     # each table's (last looking, last table, first table) rows
     lookup_rows: List[Tuple[int, int, int]] = field(default_factory=list)
@@ -250,13 +268,13 @@ class Circuit:
         s0, s1 = self.common.sigmas_range()
         return self.constants_sigmas_values[s0:s1]
 
-    def constants_sigmas_cap(self) -> List[List[int]]:
+    def constants_sigmas_cap(self) -> List[Digest]:
         return self.constants_sigmas_commitment.cap_host()
 
     def verifier_data(self) -> "VerifierOnlyCircuitData":
         return VerifierOnlyCircuitData(
             constants_sigmas_cap=self.constants_sigmas_cap(),
-            circuit_digest=list(self.circuit_digest))
+            circuit_digest=_digest_copy(self.circuit_digest))
 
 
 def _common_from_meta(meta: Dict, spec: host.FieldSpec
@@ -315,12 +333,18 @@ def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
     plain-Python metadata written by the fixture writer (a zk circuit's
     config hides; a lookup circuit's brings its tables and lookup rows).
     Commits the constants/sigmas on ``device``; raises on a
-    field or gate id the port does not have."""
+    field, hasher or gate id the port does not have."""
     dev = devmod.resolve(device)
     field = meta.get("field", "goldilocks")
     if field not in FIELDS:
         raise ValueError(f"field {field!r} is not ported")
-    spec, F, hasher = FIELDS[field]
+    spec, F, inner_hasher = FIELDS[field]
+    hasher = inner_hasher
+    if "hasher" in meta:
+        # the only other hasher: Keccak, over Goldilocks
+        if (meta["hasher"], field) != ("keccak", "goldilocks"):
+            raise ValueError(f"no {meta['hasher']!r} hasher for {field}")
+        hasher = keccak_hasher
     common = _common_from_meta(meta, spec)
     n = common.degree
     cs = np.asarray(arrays["constants_sigmas"], dtype=np.uint64)
@@ -338,16 +362,19 @@ def load_circuit(arrays: Dict[str, np.ndarray], meta: Dict,
         constants_sigmas_commitment=commitment,
         wires=F.from_ints(wires, dev),
         public_inputs=[int(v) for v in arrays["public_inputs"]],
-        circuit_digest=[int(v) for v in meta["circuit_digest"]],
+        circuit_digest=bytes(meta["circuit_digest"])
+        if getattr(hasher, "DIGEST_IS_BYTES", False)
+        else [int(v) for v in meta["circuit_digest"]],
         random_wire=tuple(meta["random_wire"]) if meta.get("random_wire")
         else None,
-        device=dev, F=F, hasher=hasher,
+        device=dev, F=F, hasher=hasher, inner_hasher=inner_hasher,
         lookup_rows=[tuple(r) for r in meta.get("lookup_rows", [])])
 
 
 def circuit_meta(data, field: str) -> dict:
     """The metadata ``load_circuit`` reads, of a built ``CircuitData`` of
-    ``field``: the port's, or the JAX package's (the fixture writers)."""
+    ``field``: the port's, or the JAX package's (the fixture writers).  A
+    Keccak circuit's names its hasher, and its digest is its bytes."""
     common = data.common
     cfg = common.config
     fc = cfg.fri_config
@@ -384,6 +411,8 @@ def circuit_meta(data, field: str) -> dict:
         "circuit_digest": [int(v) for v in po.circuit_digest],
         "random_wire": [int(v) for v in po.random_wire],
     }
+    if getattr(data.hasher, "DIGEST_IS_BYTES", False):
+        meta["hasher"] = "keccak"
     if common.luts:
         meta.update({
             "num_lookup_polys": common.num_lookup_polys,
@@ -415,8 +444,8 @@ def load_fixture(degree_bits: int, device="cuda", field: str = "goldilocks"):
 
 @dataclass
 class VerifierOnlyCircuitData:
-    constants_sigmas_cap: List[List[int]]
-    circuit_digest: List[int]
+    constants_sigmas_cap: List[Digest]
+    circuit_digest: Digest
 
 
 @dataclass
@@ -427,7 +456,7 @@ class ProverOnlyCircuitData:
     constants_sigmas_commitment: PolynomialBatch
     public_inputs: List                      # targets
     representative_map: np.ndarray
-    circuit_digest: List[int]
+    circuit_digest: Digest
     random_wire: Optional[Tuple[int, int]]   # (row, column)
     # each table's (last looking, last table, first table) rows, and its
     # (input, output) target pairs
@@ -445,6 +474,7 @@ class CircuitData:
     device: torch.device
     F: object = gl
     hasher: object = poseidon_gl
+    inner_hasher: object = poseidon_gl
     cache: Dict = field(default_factory=dict, repr=False, compare=False)
 
     def circuit(self, pw, rng: Rng) -> Circuit:
@@ -463,7 +493,8 @@ class CircuitData:
             public_inputs=witness.get_targets(po.public_inputs),
             circuit_digest=po.circuit_digest, random_wire=po.random_wire,
             device=self.device, F=self.F, hasher=self.hasher,
-            cache=self.cache, lookup_rows=po.lookup_rows)
+            inner_hasher=self.inner_hasher, cache=self.cache,
+            lookup_rows=po.lookup_rows)
 
     def prove(self, pw, rng: Optional[Rng] = None,
               timings: Optional[Dict[str, float]] = None):
@@ -485,4 +516,5 @@ class CircuitData:
         circuit (``plonk/verifier.py``, on the host; reference
         circuit_data.rs:208)."""
         from . import verifier
-        verifier.verify(proof_with_pis, self.verifier_only, self.common)
+        verifier.verify(proof_with_pis, self.verifier_only, self.common,
+                        self.hasher, self.inner_hasher)

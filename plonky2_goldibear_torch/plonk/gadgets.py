@@ -356,7 +356,7 @@ def verify_merkle_proof_to_cap_with_cap_index(b, leaf_data: List,
     state = b.hash_or_noop(leaf_data)
     for bit, sibling in zip(leaf_index_bits, siblings):
         inputs = list(state) + list(sibling)
-        inputs += [zero] * (b.hasher.WIDTH - len(inputs))
+        inputs += [zero] * (b.inner_hasher.WIDTH - len(inputs))
         state = b.permute_swapped(inputs, bit)[:n]
     for i in range(n):
         b.connect(random_access(b, cap_index, [h[i] for h in cap]), state[i])

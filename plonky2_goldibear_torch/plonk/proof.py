@@ -2,11 +2,13 @@
 fri/proof.rs), with the same field names as the JAX package's
 ``plonk/proof.py`` so the two proofs compare field by field.
 
-Everything here is host-side data: digests are lists of canonical ints,
-extension values are D-tuples of ints.
+Everything here is host-side data: digests are lists of canonical ints
+(a byte hasher's, Keccak's, are ``bytes``), extension values are D-tuples
+of ints.
 
 ``flatten_proof`` turns a proof into one uint64 array per phase (caps,
-openings, FRI caps, final poly, PoW witness, query rounds).  It reads only
+openings, FRI caps, final poly, PoW witness, query rounds; a byte digest
+as its bytes' values).  It reads only
 the field names, so it flattens a proof of either package; the committed
 fixtures store the JAX proof in this form.
 """
@@ -110,7 +112,9 @@ def _flat(nested) -> List[int]:
     out: List[int] = []
 
     def walk(x):
-        if isinstance(x, (list, tuple)):
+        if isinstance(x, (bytes, bytearray)):     # a byte digest
+            out.extend(x)
+        elif isinstance(x, (list, tuple)):
             for y in x:
                 walk(y)
         else:

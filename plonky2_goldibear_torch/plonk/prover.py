@@ -11,8 +11,10 @@ prover's rng (``fri/oracle.py``), after witness generation's draws and
 before a retry's.  ``prove`` returns the
 proof and fills ``timings`` (seconds per phase, each ended by a device
 synchronise) when a dict is passed.  The field module ``F`` (``gl`` or
-``bb``), its extension ``E`` and the hasher (Poseidon-GL or Poseidon2-BB)
-are the circuit's (``circuit_data.load_circuit`` picks them).
+``bb``), its extension ``E``, the hasher of the commitments and the
+transcript (Poseidon-GL, Poseidon2-BB or Keccak) and the inner hasher of
+the public inputs are the circuit's (``circuit_data.load_circuit`` picks
+them).
 """
 
 from __future__ import annotations
@@ -470,7 +472,10 @@ def _internal_prove(circuit, wires_values, timings,
     cap_height = config.fri_config.cap_height
     nch = config.num_challenges
     qd = _quotient_data(circuit)
-    public_inputs_hash = hasher.hash_no_pad_host(circuit.public_inputs)
+    # the public inputs' hash is the algebraic inner hasher's (reference
+    # prover.rs:157), whatever commits
+    public_inputs_hash = circuit.inner_hasher.hash_no_pad_host(
+        circuit.public_inputs)
     # the blinded oracles' salts (reference plonk_common.rs:24-40)
     salt_rng = rng if config.zero_knowledge else None
 

@@ -8,14 +8,15 @@ package's writers) produce and return the port's containers, so that the
 port's verifier checks circuits and proofs made elsewhere, such as the
 reference's recursive-verifier proof in ``tests/data/``.  Field elements
 are 8-byte little-endian words; digests are 32 bytes (Goldilocks: 4 u64,
-BabyBear: 8 u32).
+BabyBear: 8 u32), or, for a byte hasher (the Keccak config's, passed as
+``hasher=``), its HASH_SIZE raw bytes.
 
 A lookup circuit's common data carries its tables; the lookup gates (tags
 6 and 7) name theirs by index and hash.  The width-24 Poseidon2 gate has
 no tag in the format, so a circuit that hashes with it in the circuit has
 no bytes.  Not read yet, each raising ``NotImplementedError`` with its
-ROADMAP Queue 1 item: the gate of tag 17 (AddMany; item 4b), byte digests
-(the Keccak config, item 7).  The writers are item 11.
+ROADMAP Queue 1 item: the gate of tag 17 (AddMany; item 4b).  The writers
+are item 11.
 """
 
 from __future__ import annotations
@@ -94,19 +95,25 @@ class Buffer:
     def read_field_ext_vec(self, n: int, spec=host.GOLDILOCKS):
         return [self.read_field_ext(spec) for _ in range(n)]
 
-    def read_hash(self, spec=host.GOLDILOCKS) -> List[int]:
-        # 32 bytes (reference mod.rs:253-262): 4 u64 or 8 u32
+    def read_hash(self, spec=host.GOLDILOCKS, digest_bytes=None):
+        # HASH_SIZE bytes (reference mod.rs:253-262): 4 u64 or 8 u32, or
+        # a byte hasher's digest_bytes raw bytes (BytesHash)
+        if digest_bytes is not None:
+            return bytes(self.read_exact(digest_bytes))
         if spec.bits > 32:
             return [struct.unpack("<Q", self.read_exact(8))[0] % spec.p
                     for _ in range(4)]
         return [struct.unpack("<I", self.read_exact(4))[0] % spec.p
                 for _ in range(8)]
 
-    def read_merkle_cap(self, cap_height: int, spec=host.GOLDILOCKS):
-        return [self.read_hash(spec) for _ in range(1 << cap_height)]
+    def read_merkle_cap(self, cap_height: int, spec=host.GOLDILOCKS,
+                        digest_bytes=None):
+        return [self.read_hash(spec, digest_bytes)
+                for _ in range(1 << cap_height)]
 
-    def read_merkle_proof(self, spec=host.GOLDILOCKS):
-        return [self.read_hash(spec) for _ in range(self.read_u8())]
+    def read_merkle_proof(self, spec=host.GOLDILOCKS, digest_bytes=None):
+        return [self.read_hash(spec, digest_bytes)
+                for _ in range(self.read_u8())]
 
     def expect_end(self) -> None:
         if self.pos != len(self.data):
@@ -287,27 +294,38 @@ def read_common_circuit_data(data: bytes,
         num_lookup_selectors=num_lookup_selectors, luts=luts)
 
 
+def _digest_bytes(hasher):
+    """A byte hasher's digest size, else None (field-element digests)."""
+    return hasher.HASH_SIZE if getattr(hasher, "DIGEST_IS_BYTES", False) \
+        else None
+
+
 def read_verifier_only_circuit_data(data: bytes,
-                                    spec: host.FieldSpec = host.GOLDILOCKS
-                                    ) -> VerifierOnlyCircuitData:
+                                    spec: host.FieldSpec = host.GOLDILOCKS,
+                                    hasher=None) -> VerifierOnlyCircuitData:
+    """``hasher``: the Merkle hasher (None: the field's own)."""
+    db = _digest_bytes(hasher)
     buf = Buffer(data)
-    cap = buf.read_merkle_cap(buf.read_usize(), spec)
-    digest = buf.read_hash(spec)
+    cap = buf.read_merkle_cap(buf.read_usize(), spec, db)
+    digest = buf.read_hash(spec, db)
     buf.expect_end()
     return VerifierOnlyCircuitData(constants_sigmas_cap=cap,
                                    circuit_digest=digest)
 
 
-def read_proof_with_public_inputs(data: bytes, common: CommonCircuitData
-                                  ) -> ProofWithPublicInputs:
-    """reference serialization/mod.rs:1023-1090."""
+def read_proof_with_public_inputs(data: bytes, common: CommonCircuitData,
+                                  hasher=None) -> ProofWithPublicInputs:
+    """reference serialization/mod.rs:1023-1090.  ``hasher``: the Merkle
+    hasher (None: the field's own); a byte hasher's digests are its
+    HASH_SIZE raw bytes (mod.rs:253-262 is generic over it)."""
     spec = common.spec
+    db = _digest_bytes(hasher)
     buf = Buffer(data)
     config = common.config
     ch = config.fri_config.cap_height
-    wires_cap = buf.read_merkle_cap(ch, spec)
-    zs_pp_cap = buf.read_merkle_cap(ch, spec)
-    quotient_cap = buf.read_merkle_cap(ch, spec)
+    wires_cap = buf.read_merkle_cap(ch, spec, db)
+    zs_pp_cap = buf.read_merkle_cap(ch, spec, db)
+    quotient_cap = buf.read_merkle_cap(ch, spec, db)
 
     # the openings (reference mod.rs:343-388: the lookup Zs sit between
     # plonk_zs_next and partial_products)
@@ -333,14 +351,14 @@ def read_proof_with_public_inputs(data: bytes, common: CommonCircuitData
     # the FRI proof (reference mod.rs:575-600), salted leaves included
     params = common.fri_params
     leaf_lens = common.fri_leaf_lens()
-    caps = [buf.read_merkle_cap(ch, spec)
+    caps = [buf.read_merkle_cap(ch, spec, db)
             for _ in params.reduction_arity_bits]
     query_rounds = []
     for _ in range(config.fri_config.num_query_rounds):
         evals_proofs = [(buf.read_field_vec(n, spec),
-                         buf.read_merkle_proof(spec)) for n in leaf_lens]
+                         buf.read_merkle_proof(spec, db)) for n in leaf_lens]
         steps = [FriQueryStep(evals=exts(1 << ar),
-                              merkle_proof=buf.read_merkle_proof(spec))
+                              merkle_proof=buf.read_merkle_proof(spec, db))
                  for ar in params.reduction_arity_bits]
         query_rounds.append(FriQueryRound(
             initial_trees_proof=FriInitialTreeProof(evals_proofs),

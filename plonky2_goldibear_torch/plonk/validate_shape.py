@@ -17,10 +17,24 @@ def _check(cond: bool, what: str):
         raise ShapeError(f"malformed proof: {what}")
 
 
-def _check_cap(cap, cap_height: int, hash_len: int, what: str):
+def _digest_shape(common, hasher):
+    """(digest type, its length) of a cap entry or a Merkle sibling: the
+    bytes of a byte hasher (Keccak), else the field's elements."""
+    if getattr(hasher, "DIGEST_IS_BYTES", False):
+        return bytes, hasher.HASH_SIZE
+    return None, common.spec.num_hash_out_elts
+
+
+def _check_digests(digests, shape, what: str):
+    kind, length = shape
+    for d in digests:
+        _check((kind is None or isinstance(d, kind)) and len(d) == length,
+               f"{what}: digest type or width")
+
+
+def _check_cap(cap, cap_height: int, shape, what: str):
     _check(len(cap) == 1 << cap_height, f"{what}: cap length")
-    for d in cap:
-        _check(len(d) == hash_len, f"{what}: digest width")
+    _check_digests(cap, shape, what)
 
 
 def _check_exts(vals, n: int, degree: int, what: str):
@@ -29,10 +43,12 @@ def _check_exts(vals, n: int, degree: int, what: str):
         _check(len(v) == degree, f"{what}: extension degree")
 
 
-def validate_proof_with_pis_shape(proof_with_pis, common) -> None:
+def validate_proof_with_pis_shape(proof_with_pis, common,
+                                  hasher=None) -> None:
+    """``hasher``: the Merkle hasher (None: the field's own)."""
     config = common.config
     d = common.spec.ext_degree
-    h = common.spec.num_hash_out_elts
+    h = _digest_shape(common, hasher)
     cap_height = config.fri_config.cap_height
     proof = proof_with_pis.proof
 
@@ -59,12 +75,12 @@ def validate_proof_with_pis_shape(proof_with_pis, common) -> None:
              "lookup Z next")):
         _check_exts(vals, n, d, f"{what} openings")
 
-    validate_fri_proof_shape(proof.opening_proof, common)
+    validate_fri_proof_shape(proof.opening_proof, common, hasher)
 
 
-def validate_fri_proof_shape(fri_proof, common) -> None:
+def validate_fri_proof_shape(fri_proof, common, hasher=None) -> None:
     d = common.spec.ext_degree
-    h = common.spec.num_hash_out_elts
+    h = _digest_shape(common, hasher)
     params = common.fri_params
     config = params.config
     cap_height = config.cap_height
@@ -85,6 +101,7 @@ def validate_fri_proof_shape(fri_proof, common) -> None:
             _check(len(ep[0]) == leaf_len, "initial tree evals length")
             _check(len(ep[1]) == params.lde_bits - cap_height,
                    "initial tree merkle path length")
+            _check_digests(ep[1], h, "initial tree merkle path")
         _check(len(qr.steps) == len(params.reduction_arity_bits),
                "FRI step count")
         codeword_bits = params.lde_bits
@@ -93,5 +110,6 @@ def validate_fri_proof_shape(fri_proof, common) -> None:
             codeword_bits -= arity_bits
             _check(len(step.merkle_proof) == codeword_bits - cap_height,
                    "FRI step merkle path length")
+            _check_digests(step.merkle_proof, h, "FRI step merkle path")
     _check_exts(fri_proof.final_poly, params.final_poly_len, d,
                 "FRI final poly")

@@ -6,7 +6,8 @@ the quotient chunks, then the FRI verifier.
 
     verify(proof_with_pis, verifier_data, common)   # raises on failure
 
-``CircuitData.verify`` calls it with the circuit's data; ``plonk/serialization.py`` reads the three inputs from bytes.
+``CircuitData.verify`` calls it with the circuit's data and hashers;
+``plonk/serialization.py`` reads the three inputs from bytes.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 from ..field import host
 from ..fri import verifier as fri_verifier
 from ..gates.base import EvaluationVars, HostExtAlgebra
+from ..hash import keccak_hasher
 from . import vanishing
 from .circuit_data import hasher_of
 from .get_challenges import get_challenges
@@ -25,19 +27,26 @@ class VerificationError(Exception):
     pass
 
 
-def verify(proof_with_pis: ProofWithPublicInputs, verifier_data,
-           common) -> None:
-    """Raise ``VerificationError`` unless the proof is valid.  The field's
-    hasher hashes the public inputs, the Merkle trees and the transcript."""
+def verify(proof_with_pis: ProofWithPublicInputs, verifier_data, common,
+           hasher=None, inner_hasher=None) -> None:
+    """Raise ``VerificationError`` unless the proof is valid.  ``hasher``
+    checks the Merkle trees and runs the transcript, ``inner_hasher``
+    hashes the public inputs (reference verifier.rs:54); both default to
+    the field's own, but a byte circuit digest in ``verifier_data`` makes
+    ``hasher`` default to Keccak, the only byte hasher."""
     spec = common.spec
-    hasher = hasher_of(spec)
+    inner_hasher = inner_hasher or hasher_of(spec)
+    if hasher is None:
+        hasher = keccak_hasher if isinstance(verifier_data.circuit_digest,
+                                             bytes) else inner_hasher
     proof = proof_with_pis.proof
     try:
-        validate_proof_with_pis_shape(proof_with_pis, common)
+        validate_proof_with_pis_shape(proof_with_pis, common, hasher)
     except ShapeError as e:
         raise VerificationError(str(e)) from None
 
-    public_inputs_hash = hasher.hash_no_pad_host(proof_with_pis.public_inputs)
+    public_inputs_hash = inner_hasher.hash_no_pad_host(
+        proof_with_pis.public_inputs)
     challenges = get_challenges(proof_with_pis, public_inputs_hash,
                                 verifier_data.circuit_digest, common, hasher)
 

@@ -45,7 +45,9 @@ the instructions of one step in the main loop (its body over the steps it
 holds), and per Poseidon or Poseidon2 kernel its instruction count and,
 where its rounds are loops, one thread's instructions through the rounds
 of a permutation, split by opcode (``per_permutation``), for this tree's
-build and any library given with ``--sass-lib`` (another tree's build).
+build and any library given with ``--sass-lib`` (another tree's build);
+and per Keccak kernel (``keccak``) its instructions a Keccak-f, the round
+loop's 24 trips (``rounds``).
 
 ``poseidon_groups``, ``poseidon2_groups``, ``ntt_bb_clusters`` and
 ``ntt_gl_clusters`` (card only) time the launch geometries the wrappers
@@ -505,17 +507,31 @@ def _library_of(path: str) -> str:
         else "poseidon_gl"
 
 
+def keccak_rounds(code: List) -> Dict:
+    """One thread's instructions a Keccak-f in a Keccak kernel, from its
+    SASS: the round loop (24 trips) is the smallest loop of 100 or more
+    instructions."""
+    rounds = min((b for b in loops(code) if len(b) >= 100), key=len,
+                 default=None)
+    if rounds is None:
+        return None
+    return {"round_loop": len(rounds), "per_keccak_f": 24 * len(rounds),
+            "opcodes": _histogram(rounds)}
+
+
 def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
-    """Instruction counts of the chain steps and the Poseidon-GL and
-    Poseidon2-BB kernels from the built libraries' SASS; the listings go
-    to dump_dir if given.  ``libs`` adds other built Poseidon-GL or
-    Poseidon2-BB libraries (another tree's; the file name says which)."""
+    """Instruction counts of the chain steps, the Poseidon-GL and
+    Poseidon2-BB kernels and the Keccak kernels' rounds from the built
+    libraries' SASS; the listings go to dump_dir if given.  ``libs`` adds
+    other built Poseidon-GL or Poseidon2-BB libraries (another tree's; the
+    file name says which)."""
     from .ops import _build
 
-    _build.build_all(("probes", "poseidon_gl", "poseidon2_bb"))
+    _build.build_all(("probes", "poseidon_gl", "poseidon2_bb", "keccak"))
     paths = {"probes": _build._lib_path("probes"),
              "poseidon_gl": _build._lib_path("poseidon_gl"),
-             "poseidon2_bb": _build._lib_path("poseidon2_bb")}
+             "poseidon2_bb": _build._lib_path("poseidon2_bb"),
+             "keccak": _build._lib_path("keccak")}
     for path in libs or ():
         paths[path] = path
     out = {"chains": {}}
@@ -537,6 +553,9 @@ def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
                     "unroll": K.unroll(step), "loop_body": len(body),
                     "per_step": len(body) / K.unroll(step),
                     "opcodes": _histogram(body)}
+            elif name == "keccak":
+                out.setdefault(name, {})[func] = {
+                    "instructions": len(code), "rounds": keccak_rounds(code)}
             else:
                 out.setdefault(name, {})[func] = {
                     "instructions": len(code),

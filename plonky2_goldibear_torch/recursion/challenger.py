@@ -17,7 +17,8 @@ from typing import List, Sequence
 class RecursiveChallenger:
     def __init__(self, builder):
         self.b = builder
-        self.hasher = builder.hasher
+        # the inner proof's transcript: the builder's algebraic hasher
+        self.hasher = builder.inner_hasher
         self.sponge_state: List = [builder.zero()] * self.hasher.WIDTH
         self.input_buffer: List = []
         self.output_buffer: List = []

@@ -225,6 +225,10 @@ def _set_values(pw, targets, values):
     """Each target of ``targets`` set to its value in ``values``, two
     structures of one shape (containers, lists, digests, extension
     elements)."""
+    if isinstance(values, (bytes, bytearray)):
+        raise ValueError("the inner proof has byte digests (the Keccak "
+                         "config): the recursive verifier needs an inner "
+                         "proof of an algebraic hasher")
     if dataclasses.is_dataclass(targets):
         for f in dataclasses.fields(targets):
             _set_values(pw, getattr(targets, f.name), getattr(values, f.name))
@@ -241,6 +245,9 @@ def _set_values(pw, targets, values):
 
 def set_proof_with_pis_target(pw, proof_t: ProofWithPublicInputs,
                               proof_with_pis):
+    """Raises ``ValueError`` on a proof whose digests are bytes: no gate
+    computes Keccak (the reference asks an AlgebraicHasher of the inner
+    config)."""
     _set_values(pw, proof_t, proof_with_pis)
 
 

@@ -595,15 +595,59 @@ def test_unported_features_raise_with_their_item():
     x = b.add_virtual_target()
     for call, item in (
             (lambda: b.add_many([x] * 23), "4b"),
-            (lambda: b.build(device="cpu", commit_streaming=True), 9),
-            (lambda: b.permute([x] * 12, hasher=object()), 7),
-            (lambda: CircuitBuilder(cfg, hasher=object()), 7)):
+            (lambda: b.build(device="cpu", commit_streaming=True), 9)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1 item {item}\\b"):
+            call()
+    # the hashers are ported (the Keccak config was item 7): one the port
+    # does not know is refused as unknown, in a gadget and as the builder's
+    for call in (lambda: b.permute([x] * 12, hasher=object()),
+                 lambda: CircuitBuilder(cfg, hasher=object())):
+        with pytest.raises(ValueError, match="unknown hasher"):
             call()
     b.goal_common_data = object()
     with pytest.raises(NotImplementedError, match="item 4b"):
         b.build(device="cpu")
+
+
+def test_keccak_builder_commits_with_keccak_and_hashes_with_poseidon():
+    """Under the Keccak config the builder's gadgets, the recursive
+    challenger included, place Poseidon-GL gates (the inner hasher), the
+    rows equal the JAX Keccak builder's, and the build's cap and digest
+    are bytes."""
+    from plonky2_goldibear_torch.hash import keccak_hasher, poseidon_gl
+    from plonky2_goldibear_torch.recursion.challenger import \
+        RecursiveChallenger
+    from plonky2_goldibear_tpu.hash import keccak_hasher as jkeccak
+    from plonky2_goldibear_tpu.plonk.builder import \
+        CircuitBuilder as JCircuitBuilder
+    from plonky2_goldibear_tpu.plonk.config import \
+        CircuitConfig as JCircuitConfig
+
+    states = []
+    for b in (CircuitBuilder(config_of("goldilocks"), hasher=keccak_hasher),
+              JCircuitBuilder(JCircuitConfig.standard_recursion_config_gl(),
+                              hasher=jkeccak)):
+        _gadget_circuit(b)
+        states.append((
+            [(i.gate.id(), i.constants) for i in b.gate_instances],
+            b.copy_constraints, b.constants_to_targets, b.public_inputs,
+            b.current_slots, b.virtual_target_index))
+    assert states[0] == states[1]
+    b = CircuitBuilder(config_of("goldilocks"), hasher=keccak_hasher)
+    assert b.hasher is keccak_hasher and b.inner_hasher is poseidon_gl
+    ch = RecursiveChallenger(b)
+    assert ch.hasher is poseidon_gl
+    ch.observe_elements(b.add_virtual_targets(3))
+    ch.get_challenge()
+    assert [i.gate.id() for i in b.gate_instances] == \
+        ["PoseidonGate<WIDTH=12>"]
+    circuits.arith_chain(b, 4)
+    data = b.build(device="cpu")
+    assert data.hasher is keccak_hasher and data.inner_hasher is poseidon_gl
+    assert isinstance(data.verifier_only.circuit_digest, bytes)
+    assert all(isinstance(d, bytes) and len(d) == 25
+               for d in data.verifier_only.constants_sigmas_cap)
 
 
 def test_build_without_device_needs_a_gpu():

@@ -16,6 +16,7 @@ import torch
 
 from plonky2_goldibear_torch import probes as runner
 from plonky2_goldibear_torch.field import bb, gl
+from plonky2_goldibear_torch.ops import keccak as KK
 from plonky2_goldibear_torch.ops import ntt, ntt_bb
 from plonky2_goldibear_torch.ops import probes as KP
 from plonky2_goldibear_torch.ops import poseidon2_bb as K2
@@ -284,3 +285,39 @@ def test_probe_chain_kernel(cuda, step, n):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
     else:
         assert torch.equal(got, ref)
+
+
+# -- Keccak ----------------------------------------------------------------
+
+
+def _bytes(device, *shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, size=shape,
+                                         dtype=np.uint8)).to(device)
+
+
+@pytest.mark.parametrize("length", [0, 1, 25, 50, 96, 135, 136, 137, 271,
+                                    272, 680, 1080])
+@pytest.mark.parametrize("n", [1, 129, 5000])
+def test_keccak_rows_kernel(cuda, n, length):
+    rows = _bytes(cuda, n, length, seed=length)
+    assert torch.equal(KK.hash_rows(rows), KK.hash_rows_plain(rows))
+    # contiguous rows that start off an 8-byte boundary: the byte loads
+    odd = _bytes(cuda, n * length + 1, seed=length + 1)[1:].view(n, length)
+    assert torch.equal(KK.hash_rows(odd), KK.hash_rows_plain(odd))
+
+
+@pytest.mark.parametrize("n,layers", [(2, 1), (16, 4), (1 << 15, 11),
+                                      (1 << 17, 13), (64, 0)])
+def test_keccak_merkle_levels_kernel(cuda, n, layers):
+    d0 = _bytes(cuda, n, 25, seed=n)
+    got, ref = KK.merkle_levels(d0, layers), KK.merkle_levels_plain(d0,
+                                                                     layers)
+    assert len(got) == len(ref) == layers
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 17])
+def test_keccak_permute_kernel(cuda, n):
+    s = _rand(cuda, n, 12, seed=n)
+    assert torch.equal(KK.permute(s), KK.permute_plain(s))

@@ -224,6 +224,36 @@ def _points(rng, n_wires, n_consts, m):
 
 
 @pytest.mark.parametrize("gate_id", OUTER_GATES, ids=short_id)
+def test_circuit_evaluation_matches_jax(gate_id):
+    """``eval_unfiltered`` over ``CircuitExtAlgebra`` on both builders: the
+    same rows, copies and constants.  An outer over an outer (the GL
+    double recursion, the Keccak outer over a Poseidon outer) places the
+    13 gates' constraints this way; PoseidonMdsGate computed a lane's D
+    coefficients and their constraints interleaved, where the JAX gate
+    computes the coefficients first, so those rows differed."""
+    from plonky2_goldibear_tpu.gates import base as jbase
+    from plonky2_goldibear_tpu.gates import circuit_algebra as jca
+    from plonky2_goldibear_torch.gates.circuit_algebra import \
+        CircuitExtAlgebra
+
+    port, jax_ = _both_builders()
+    states = []
+    for b, A, EV, g in (
+            (port, CircuitExtAlgebra, EvaluationVars,
+             gate_from_id(gate_id, SPEC)),
+            (jax_, jca.CircuitExtAlgebra, jbase.EvaluationVars,
+             _jax_gate_by_class(gate_id))):
+        consts = [b.add_virtual_extension_target()
+                  for _ in range(g.num_constants())]
+        wires = [b.add_virtual_extension_target()
+                 for _ in range(g.num_wires())]
+        pis = [b.add_virtual_extension_target() for _ in range(4)]
+        g.eval_unfiltered(A(b), EV(consts, wires, pis))
+        states.append(_state(b))
+    assert states[0] == states[1]
+
+
+@pytest.mark.parametrize("gate_id", OUTER_GATES, ids=short_id)
 def test_device_evaluation_matches_host_and_jax(gate_id):
     """At 8 random points: the port's ``eval_unfiltered`` over
     ``DeviceBaseAlgebra`` (torch tensors), over ``HostBaseAlgebra`` (one

@@ -10,7 +10,9 @@ then has 2^10 rows (2^12 at the full 28 rounds, whose CPU commits would
 take minutes).  On the card (``-m gpu``; skips without one) the full
 configuration: the outer over the 2^12 chain, its common data, cap and
 digest against the JAX build (``data/recursive_gl_2e12inner_*.bin``), its
-proof verified.
+proof verified; then the Keccak outer over that outer's proof (the top of
+the reference's multi-hash tower, recursive_verifier.rs:623-664) against
+``data/recursive_keccak_gl_2e12_*.bin``, proved and verified.
 
     python -m pytest --noconftest tests/test_torch_recursion_prove.py -q
 """
@@ -119,12 +121,21 @@ def test_outer_witness_refuses_a_false_inner_proof(small):
                       NonRandomRng(1))
 
 
-@pytest.mark.gpu
-def test_full_recursion_on_the_card():
+@pytest.fixture(scope="module")
+def full():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    _, inner_proof, outer, outer_proof, _ = recurse(
-        CircuitConfig.standard_recursion_config_gl(), 12, "cuda")
+    return recurse(CircuitConfig.standard_recursion_config_gl(), 12, "cuda")
+
+
+def _read(name):
+    with open(os.path.join(DATA_DIR, name), "rb") as f:
+        return f.read()
+
+
+@pytest.mark.gpu
+def test_full_recursion_on_the_card(full):
+    _, inner_proof, outer, outer_proof, _ = full
     assert outer.common.degree_bits == 12
     read_common = ser.read_common_circuit_data(open(os.path.join(
         DATA_DIR, "recursive_gl_2e12inner_common.bin"), "rb").read())
@@ -137,3 +148,29 @@ def test_full_recursion_on_the_card():
     with pytest.raises(VerificationError):
         outer.verify(tampered(outer_proof, outer.common.spec.p))
     assert outer_proof.public_inputs == inner_proof.public_inputs
+
+
+@pytest.mark.gpu
+def test_keccak_outer_on_the_card(full):
+    from plonky2_goldibear_torch.hash import keccak_hasher
+
+    _, inner_proof, outer, outer_proof, _ = full
+    kb = CircuitBuilder(CircuitConfig.standard_recursion_config_gl(),
+                        hasher=keccak_hasher)
+    proof_t, vk_t = circuits.recursive_verifier(kb, outer.common)
+    keccak = kb.build(device="cuda")
+    read_common = ser.read_common_circuit_data(_read(
+        "recursive_keccak_gl_2e12_common.bin"))
+    assert [g.id() for g in read_common.gates] == \
+        [g.id() for g in keccak.common.gates]
+    assert keccak.verifier_only == ser.read_verifier_only_circuit_data(
+        _read("recursive_keccak_gl_2e12_verifier.bin"), hasher=keccak_hasher)
+    pw = PartialWitness()
+    rv.set_proof_with_pis_target(pw, proof_t, outer_proof)
+    rv.set_verifier_data_target(pw, vk_t, outer.verifier_only)
+    proof = keccak.prove(pw, rng=NonRandomRng(1))
+    assert all(isinstance(d, bytes) for d in proof.proof.wires_cap)
+    keccak.verify(proof)
+    with pytest.raises(VerificationError):
+        keccak.verify(tampered(proof, keccak.common.spec.p))
+    assert proof.public_inputs == inner_proof.public_inputs
