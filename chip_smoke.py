@@ -148,6 +148,38 @@
      verified, tampered copies rejected;
    - then every kernel at each new shape of these builds and proves.
 
+10. AddManyGate, conditional and cyclic (IVC) recursion, before phase 5
+   too, all under ``standard_recursion_config_gl()``:
+   - ``circuits.add_many_sums`` (sums of 23, 46 and 100 addends: three
+     AddManyGate rows) built and proved from ``NonRandomRng(1)``, against
+     ``data/add_many_sums.npz`` and the JAX bytes (metadata, common data,
+     constants/sigmas, cap and digest, every proof phase); one more prove
+     profiled and its device events read both by the raw reader that
+     every profile here uses and by ``prof.events()``, which must agree;
+   - the conditional verifier (``circuits.conditional_outer``) over
+     ``circuits.fib_inner`` and its proof (against the JAX proof, and
+     the dummy circuit over its common data and the dummy proof against
+     the JAX build and proof): the dummy circuit built and
+     proved on the card while the gadgets are laid out (``dummy_s``, part
+     of ``gadgets_s``), the outer built, then witnessed and proved for
+     condition 1 (the proof) and condition 0 (the dummy);
+   - the repeated-hash IVC counter (``circuits.cyclic_counter``) over the
+     reference's fixed point (``common_data_for_recursion``, 2^13 rows):
+     its common data, cap and digest against the JAX build
+     (``data/cyclic_counter_{common,verifier}.bin``), the base proof
+     (``cyclic_base_proof``), then the base case and two steps proved, each
+     proof's verifier data checked and the proof verified; the counters
+     read 0, 1, 2 and the current hash is H^3 of the initial one;
+   - the GL double recursion: a Poseidon outer over phase 6's outer and its
+     proof, proved and verified.
+   For each circuit ``gadgets_s``, ``build_s``, ``witgen_s``, its first
+   (cold) prove with every kernel's launches counted, and ``verify_s``;
+   then ``REPS_10`` warm proves timed (``prove_s``), the launches of the
+   last, and the launches, device ms and busy share of one more, profiled
+   (for the conditional outer with condition 1, and for the IVC's first
+   step); a tampered copy of each proof is rejected; then every kernel at
+   each new shape.
+
 Each phase prints the script's seconds when it starts.
 
 Between 3 and 4, the probe phase: each dependent-chain probe kernel
@@ -223,6 +255,8 @@ ZK_PROVE_REPS = 1
 # builds (and witnesses) of the 2^12 chains and of the recursive outer:
 # one, since phase 9 took the script past 560 s with three
 BUILD_REPS = 1
+# phase 10: warm proves timed per circuit, after its first (cold) prove
+REPS_10 = 3
 
 # Merkle trees checked besides the prove's: FRI layers to a cap of 16 and
 # a tree to its root (one subtree for the tail)
@@ -377,6 +411,51 @@ def _compare_probe(a, b):
     return int(bad.sum()), float((a - b).abs().max())
 
 
+def _device_events(prof) -> dict:
+    """Per kernel name of a finished profile, (launches, summed device
+    ms), from the profiler's raw events: ``prof.events()`` builds a python
+    event tree of the same events, about 100 us an event (some 40 s for
+    the ~450k events of a 2^12 outer's prove).  ``_profile_readers``
+    holds the two readings equal on the card."""
+    import torch
+
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n, ms = per.get(e.name(), (0, 0.0))
+            per[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
+    return per
+
+
+def _profile_readers(fn) -> dict:
+    """One call of fn profiled and its device events read twice: by
+    ``_device_events`` and by ``prof.events()``.  Whether the launches
+    and the device ms agree in total (ms within 1e-3) and kernel by
+    kernel (the sorted per-kernel launch counts; the names too, which
+    ``prof.events()`` may rewrite, are reported beside)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    raw = _device_events(prof)
+    tree = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, ms = tree.get(e.name, (0, 0.0))
+            tree[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    totals = [tuple(map(sum, zip(*d.values()))) for d in (raw, tree)]
+    print("profile readers (launches, device ms): raw "
+          f"{totals[0]}, prof.events() {totals[1]}, same names "
+          f"{set(raw) == set(tree)}")
+    return {"launches": totals[0][0] == totals[1][0] > 0,
+            "ms": abs(totals[0][1] - totals[1][1]) <= 1e-3,
+            "per_kernel_launches": sorted(n for n, _ in raw.values())
+            == sorted(n for n, _ in tree.values())}
+
+
 def _profile(fn, wall_ms_unprofiled: float):
     """One call of fn under torch.profiler (CUDA activities): per kernel
     name its launches and summed device ms, and the device-busy share, the
@@ -392,11 +471,7 @@ def _profile(fn, wall_ms_unprofiled: float):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, ms = per.get(e.name, (0, 0.0))
-            per[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    per = _device_events(prof)
     busy = sum(ms for _, ms in per.values())
     return {"wall_ms": wall_ms_unprofiled, "profiled_wall_ms": wall_ms,
             "device_ms": busy,
@@ -1024,6 +1099,260 @@ def phase_keccak(inner, inner_proof, report, failures, calls,
                prove_s=times, phases=phases, launches=launches,
                profile=prof, degree_bits=outer.common.degree_bits)
     return launches
+
+
+def _witness_and_prove(data, pw, label, failures, calls, kernels, reps=0):
+    """Witness generation of ``pw`` (``witgen_s``), then its prove from
+    ``NonRandomRng(1)`` on, with its kernel calls in ``calls[label]`` and
+    every kernel's launches counted (the counts set to 0 just before it),
+    and ``verify_s`` of that proof.  That prove is timed as
+    ``first_prove_s``: a circuit's first prove also fills its cache.  With
+    ``reps``, ``_timed_proves`` times that many warm proves of the same
+    witness (``prove_s``) and profiles one more.  Returns (proof,
+    numbers)."""
+    import torch
+
+    from plonky2_goldibear_torch import ops
+    from plonky2_goldibear_torch.iop.generator import NonRandomRng
+    from plonky2_goldibear_torch.plonk import prover
+
+    rng = NonRandomRng(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    circuit = data.circuit(pw, rng)
+    torch.cuda.synchronize()
+    witgen_s = time.perf_counter() - t0
+    ops.reset_launches()
+    timings = {}
+    t0 = time.perf_counter()
+    proof = _recorded(calls, label, lambda: prover.prove(
+        circuit, device="cuda", timings=timings, rng=rng))
+    torch.cuda.synchronize()
+    first_prove_s = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    failures.extend(f"kernel {k} was not launched by the {label} prove"
+                    for k in kernels if launches.get(k, 0) <= 0)
+    nums = {"witgen_s": witgen_s, "first_prove_s": first_prove_s,
+            "first_phases": timings, "first_launches": launches}
+    t0 = time.perf_counter()
+    data.verify(proof)
+    nums["verify_s"] = time.perf_counter() - t0
+    print(f"{label}: witgen_s {witgen_s:.4f}, first prove {first_prove_s:.4f}"
+          f" s, verify_s {nums['verify_s']:.4f}; phases " + json.dumps(
+              {k: round(v, 4) for k, v in timings.items()})
+          + "; launches " + json.dumps(launches))
+    if reps:
+        _, times, phases, warm_launches, prof = _timed_proves(
+            lambda t: prover.prove(circuit, device="cuda", timings=t), reps,
+            label, failures, kernels)
+        nums.update(prove_s=times, phases=phases, launches=warm_launches,
+                    profile=prof)
+    return proof, nums
+
+
+def phase_cyclic(inner, inner_proof, report, failures, calls, made) -> None:
+    """Phase 10 (see the module docstring): AddManyGate, conditional
+    recursion, the IVC counter and the GL double recursion over ``inner``
+    (phase 6's outer ``CircuitData``) and ``inner_proof``.  ``calls`` gets
+    the kernel calls of each build and profiled prove, ``made`` each
+    (label, proof, verifier data, common data) for phase 5."""
+    import copy
+
+    import numpy as np
+
+    from plonky2_goldibear_torch import circuits
+    from plonky2_goldibear_torch.field import gl
+    from plonky2_goldibear_torch.hash import poseidon_gl
+    from plonky2_goldibear_torch.iop.generator import NonRandomRng
+    from plonky2_goldibear_torch.iop.witness import PartialWitness
+    from plonky2_goldibear_torch.plonk import gadgets as gd
+    from plonky2_goldibear_torch.plonk import prover
+    from plonky2_goldibear_torch.plonk import serialization as ser
+    from plonky2_goldibear_torch.plonk.circuit_data import (circuit_meta,
+                                                            read_fixture)
+    from plonky2_goldibear_torch.plonk.config import CircuitConfig
+    from plonky2_goldibear_torch.plonk.proof import (PROOF_PHASES,
+                                                     flatten_proof)
+    from plonky2_goldibear_torch.recursion import conditional as cc
+    from plonky2_goldibear_torch.recursion import recursive_verifier as rv
+
+    rec = report.setdefault("cyclic", {})
+    expect = functools.partial(_expect, rec, failures)
+    rejects = functools.partial(_rejects, failures)
+    kernels = ("ntt", "permute", "leaf_sponge", "merkle_levels")
+    config = CircuitConfig.standard_recursion_config_gl()
+
+    def jax_bins(name):
+        common = ser.read_common_circuit_data(_read_bin(name + "_common.bin"))
+        return common, ser.read_verifier_only_circuit_data(
+            _read_bin(name + "_verifier.bin"))
+
+    def built(label, make):
+        """(data, targets, numbers) of ``make``'s circuit built on the
+        card; ``gadgets_s`` holds the dummy circuits' builds and proofs,
+        ``dummy_s`` says how long they took."""
+        timings = {}
+        data, targets, gadgets_s, build_s, launches = _built(
+            lambda b: make(b, timings), config, label + "_build", calls,
+            timings)
+        return data, targets, {"gadgets_s": gadgets_s,
+                               "dummy_s": timings.pop("dummy_s", 0.0),
+                               "build_s": build_s, "build_phases": timings,
+                               "build_launches": launches}
+
+    # -- add_many_sums against the JAX fixture ------------------------------
+    data, xs, nums = built("add_many_sums",
+                           lambda b, t: circuits.add_many_sums(b))
+    pw = PartialWitness()
+    pw.set_targets(xs, circuits.ADD_MANY_INPUTS)
+    proof, more = _witness_and_prove(data, pw, "add_many_sums", failures,
+                                     calls, kernels, REPS_10)
+    ok = _profile_readers(lambda: prover.prove(
+        data.circuit(pw, NonRandomRng(1)), device="cuda"))
+    expect("add_many_sums profile, raw events vs prof.events()", ok)
+    arrays, meta = read_fixture(os.path.join(ROOT, DATA.format(
+        "add_many_sums.npz")))
+    common_j, vk_j = jax_bins("add_many_sums")
+    ok = {"meta": circuit_meta(data, "goldilocks") == meta,
+          **_common_equal(data.common, common_j),
+          "constants_sigmas": bool(np.array_equal(
+              gl.to_ints(data.prover_only.constants_sigmas_values),
+              arrays["constants_sigmas"])),
+          "cap_and_digest": data.verifier_only == vk_j,
+          "sums": proof.public_inputs == [
+              sum(circuits.ADD_MANY_INPUTS[:n]) % gl.P
+              for n in circuits.ADD_MANY_COUNTS]}
+    got = flatten_proof(proof)
+    ok.update({f"proof_{k}": bool(np.array_equal(got[k], arrays["proof_" + k]))
+               for k in PROOF_PHASES})
+    expect("add_many_sums on the card vs the JAX fixture", ok)
+    rejects(data, proof, "add_many_sums", _bump_wire(0, gl.P))
+    made.append(("add_many_sums", proof, data.verifier_only, data.common))
+    rec["add_many_sums"] = dict(nums, **more)
+
+    # -- the conditional verifier over fib_inner, both branches -------------
+    fib, fib_in, _ = built("fib_inner", lambda b, t: circuits.fib_inner(b))
+    pw = PartialWitness()
+    pw.set_targets(fib_in, circuits.FIB_INNER_INPUTS)
+    fib_proof = fib.prove(pw, rng=NonRandomRng(1))
+    fib.verify(fib_proof)
+    got = flatten_proof(fib_proof)
+    want = flatten_proof(ser.read_proof_with_public_inputs(
+        _read_bin("fib_inner_proof.bin"), fib.common))
+    expect("fib_inner on the card vs the JAX proof",
+           {f"proof_{k}": bool(np.array_equal(got[k], want[k]))
+            for k in PROOF_PHASES})
+    dummy = cc.dummy_circuit(fib.common, device="cuda")
+    dummy_proof = cc.dummy_proof(dummy, {}, rng=NonRandomRng(1))
+    dummy.verify(dummy_proof)
+    common_j, vk_j = jax_bins("dummy_fib")
+    got = flatten_proof(dummy_proof)
+    want = flatten_proof(ser.read_proof_with_public_inputs(
+        _read_bin("dummy_fib_proof.bin"), dummy.common))
+    expect("the dummy circuit over fib_inner on the card vs the JAX build "
+           "and proof", {"common": dummy.common == common_j,
+                         "cap_and_digest": dummy.verifier_only == vk_j,
+                         **{f"proof_{k}": bool(np.array_equal(got[k],
+                                                              want[k]))
+                            for k in PROOF_PHASES}})
+    outer, (cond, proof_t, vk_t), nums = built(
+        "conditional_outer", lambda b, t: circuits.conditional_outer(
+            b, fib.common, cc, rv, gd, device="cuda", rng=NonRandomRng(1),
+            timings=t))
+    label = f"conditional outer 2^{outer.common.degree_bits}"
+    rec["conditional"] = dict(nums, degree_bits=outer.common.degree_bits)
+    for condition in (1, 0):
+        pw = PartialWitness()
+        pw.set_target(cond, condition)
+        rv.set_proof_with_pis_target(pw, proof_t, fib_proof)
+        rv.set_verifier_data_target(pw, vk_t, fib.verifier_only)
+        proof, more = _witness_and_prove(
+            outer, pw, f"conditional_outer_c{condition}", failures, calls,
+            kernels, REPS_10 if condition == 1 else 0)
+        rejects(outer, proof, f"{label}, condition {condition}",
+                _bump_wire(0, gl.P))
+        rec["conditional"][f"condition_{condition}"] = more
+    made.append(("conditional_outer_c0", proof, outer.verifier_only,
+                 outer.common))
+    print(f"{label}: gadgets_s {nums['gadgets_s']:.4f} (dummy circuit "
+          f"built and proved: {nums['dummy_s']:.4f}), build_s "
+          f"{nums['build_s']:.4f}")
+
+    # -- the IVC counter: base case and two steps ---------------------------
+    t0 = time.perf_counter()
+    common = cc.common_data_for_recursion(config)
+    fixed_point_s = time.perf_counter() - t0
+    data, (cond, inner_t, vk_t), nums = built(
+        "cyclic_counter", lambda b, t: circuits.cyclic_counter(
+            b, common, cc, rv, device="cuda", rng=NonRandomRng(1),
+            timings=t))
+    common_j, vk_j = jax_bins("cyclic_counter")
+    fixed_j = ser.read_common_circuit_data(_read_bin("cyclic_common.bin"))
+    fixed_j.num_public_inputs = common.num_public_inputs
+    ok = {"fixed_point": common == fixed_j,
+          "goal": data.common == common,
+          **_common_equal(data.common, common_j),
+          "cap_and_digest": data.verifier_only == vk_j}
+    label = f"IVC counter 2^{data.common.degree_bits}"
+    expect(f"{label} built by the port vs the JAX build", ok)
+    base_t = {}
+    base = cc.cyclic_base_proof(common, data.verifier_only, dict(
+        enumerate(circuits.CYCLIC_INITIAL_HASH)), device="cuda",
+        rng=NonRandomRng(1), timings=base_t)
+    steps, prev = [], base
+    for step, condition in enumerate((0, 1, 1)):
+        pw = PartialWitness()
+        pw.set_target(cond, condition)
+        rv.set_proof_with_pis_target(pw, inner_t, prev)
+        rv.set_verifier_data_target(pw, vk_t, data.verifier_only)
+        prev, more = _witness_and_prove(data, pw, f"cyclic_step{step}",
+                                        failures, calls, kernels,
+                                        REPS_10 if step == 1 else 0)
+        cc.check_cyclic_proof_verifier_data(prev, data.verifier_only, common)
+        steps.append(dict(more, counter=prev.public_inputs[8]))
+    made.append(("cyclic_counter_step2", prev, data.verifier_only,
+                 data.common))
+    h = list(circuits.CYCLIC_INITIAL_HASH)
+    for _ in range(3):
+        h = poseidon_gl.hash_no_pad_host(h)
+    ok = {"counters": [s["counter"] for s in steps] == [0, 1, 2],
+          "initial_hash": prev.public_inputs[:4]
+          == list(circuits.CYCLIC_INITIAL_HASH),
+          "hash_chain": prev.public_inputs[4:8] == h}
+    bad = copy.deepcopy(prev)
+    bad.public_inputs[9] = (bad.public_inputs[9] + 1) % gl.P
+    try:
+        cc.check_cyclic_proof_verifier_data(bad, data.verifier_only, common)
+        ok["tampered_vk_refused"] = False
+    except ValueError:
+        ok["tampered_vk_refused"] = True
+    expect(f"{label}: three proofs", ok)
+    rejects(data, prev, label, _bump_wire(0, gl.P))
+    print(f"{label}: fixed point {fixed_point_s:.4f} s, gadgets_s "
+          f"{nums['gadgets_s']:.4f} (dummy circuit built and proved: "
+          f"{nums['dummy_s']:.4f}), build_s {nums['build_s']:.4f}, base "
+          f"proof {base_t.get('dummy_s', 0.0):.4f} s")
+    rec["cyclic"] = dict(nums, fixed_point_s=fixed_point_s,
+                         base_proof_s=base_t.get("dummy_s", 0.0),
+                         steps=steps, degree_bits=data.common.degree_bits)
+
+    # -- the GL double recursion: a Poseidon outer over phase 6's outer ----
+    outer, (proof_t, vk_t), nums = built(
+        "double_recursion", lambda b, t: circuits.recursive_verifier(
+            b, inner.common))
+    pw = PartialWitness()
+    rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
+    rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
+    proof, more = _witness_and_prove(outer, pw, "double_recursion", failures,
+                                     calls, kernels, REPS_10)
+    label = f"GL double recursion 2^{outer.common.degree_bits}"
+    expect(label, {"public_inputs": proof.public_inputs
+                   == list(inner_proof.public_inputs)})
+    rejects(outer, proof, label, _bump_wire(0, gl.P))
+    made.append(("double_recursion", proof, outer.verifier_only,
+                 outer.common))
+    rec["double_recursion"] = dict(nums, **more,
+                                   degree_bits=outer.common.degree_bits)
 
 
 def phase_verify(made, failures) -> dict:
@@ -1963,6 +2292,22 @@ def main() -> int:
         check_new_shapes(keccak_calls, "keccak")
     except Exception as e:
         failures.append(f"Keccak shape checks: {type(e).__name__}: {e}")
+
+    # -- phase 10: AddManyGate, conditional and cyclic recursion ------------
+    phase_start("10")
+    cyclic_calls = {}
+    try:
+        if "recursive" not in mains:
+            raise RuntimeError("no GL recursive proof from phase 6")
+        inner, inner_proof = mains["recursive"]
+        phase_cyclic(inner, inner_proof, report, failures, cyclic_calls, made)
+    except Exception as e:
+        failures.append(f"cyclic recursion phase: {type(e).__name__}: {e}")
+    try:
+        check_new_shapes(cyclic_calls, "cyclic")
+    except Exception as e:
+        failures.append(f"cyclic recursion shape checks: {type(e).__name__}: "
+                        f"{e}")
 
     # -- phase 5: the verifier, on the host ----------------------------------
     phase_start("5")

@@ -358,3 +358,109 @@ def u16_table(builder) -> List:
     half = U16_PUBLIC_OUTPUTS // 2
     b.register_public_inputs(outs[:half] + outs[-half:])
     return ins
+
+
+FIB_INNER_STEPS = 50
+FIB_INNER_INPUTS = (0, 1)
+
+
+def fib_inner(builder) -> List:
+    """The inner circuit of the JAX package's recursion tests
+    (``tests/test_recursion.py:14-29`` ``build_inner``): Fibonacci by
+    ``FIB_INNER_STEPS`` ``add``s from two public inputs, its end the third
+    public input.  Returns the two inputs; the witness sets them to
+    ``FIB_INNER_INPUTS``."""
+    b = builder
+    ia, ib = b.add_virtual_target(), b.add_virtual_target()
+    b.register_public_inputs([ia, ib])
+    x, y = ia, ib
+    for _ in range(FIB_INNER_STEPS):
+        x, y = y, b.add(x, y)
+    b.register_public_input(x)
+    return [ia, ib]
+
+
+ADD_MANY_COUNTS = (23, 46, 100)
+ADD_MANY_INPUTS = tuple((i * 0x9E3779B97F4A7C15 + 7) % 0xFFFFFFFF00000001
+                        for i in range(max(ADD_MANY_COUNTS)))
+
+
+def add_many_sums(builder) -> List:
+    """Sums of the first 23, 46 and 100 of 100 targets by ``add_many``,
+    the three sums public.  23 addends take one AddManyGate op; 46 and 100
+    take two and four (and a short chunk of 8 by ``add``), then the sum of
+    the chunk sums by ``add`` (the JAX package's ``plonk/builder.py:
+    325-343``): seven ops, so the gate's third row is partly used.
+    Goldilocks.  Returns the 100 targets; the witness sets them to
+    ``ADD_MANY_INPUTS``."""
+    xs = builder.add_virtual_targets(max(ADD_MANY_COUNTS))
+    builder.register_public_inputs([builder.add_many(xs[:n])
+                                    for n in ADD_MANY_COUNTS])
+    return xs
+
+
+def conditional_outer(builder, inner_common, cond, rv, gd, **dummy):
+    """The outer circuit of the JAX package's
+    ``tests/test_conditional_recursion.py:17-48``: a boolean condition,
+    targets of a proof of a circuit of ``inner_common`` and of its verifier
+    data, and ``cond.conditionally_verify_proof_or_dummy`` over them.
+    ``cond``, ``rv`` and ``gd`` are the builder's package's
+    ``recursion/conditional``, ``recursion/recursive_verifier`` and
+    ``plonk/gadgets`` modules; ``dummy`` goes to the dummy proof's call
+    (the port's ``device``, ``rng`` and ``timings``).  Returns
+    (condition, proof targets, verifier-data targets)."""
+    condition = builder.add_virtual_target()
+    gd.assert_bool(builder, condition)
+    proof_t = rv.add_virtual_proof_with_pis(builder, inner_common)
+    vk_t = rv.add_virtual_verifier_data(
+        builder, inner_common.config.fri_config.cap_height)
+    cond.conditionally_verify_proof_or_dummy(builder, condition, proof_t,
+                                             vk_t, inner_common, **dummy)
+    return condition, proof_t, vk_t
+
+
+CYCLIC_INITIAL_HASH = (0, 1, 2, 3)
+
+
+def cyclic_counter(builder, common, cond, rv, **dummy):
+    """The repeated-hash IVC counter of the JAX package's
+    ``tests/test_cyclic_recursion.py:27-105`` (the reference's
+    cyclic_recursion.rs:281-383).  Public inputs: the initial hash (4), the
+    current hash, one Poseidon hash of the previous one (4), the counter,
+    then the circuit's own verifier data.  Where the condition is 1 the
+    circuit verifies a proof of itself and counts one more; where it is 0
+    it verifies a dummy proof and starts from the initial hash at 0.
+    ``common`` is ``cond.common_data_for_recursion``'s; its
+    ``num_public_inputs`` is set here to the circuit's, as the JAX test
+    sets it, and the circuit must build to it.  ``cond`` and ``rv`` are
+    the builder's package's ``recursion/conditional`` and
+    ``recursion/recursive_verifier``; ``dummy`` goes to the dummy proof's
+    call.  Returns (condition, inner proof targets, verifier-data
+    targets)."""
+    b = builder
+    one = b.one()
+    initial_hash = b.add_virtual_targets(4)
+    b.register_public_inputs(initial_hash)
+    current_hash_in = b.add_virtual_targets(4)
+    b.register_public_inputs(b.hash_n_to_hash_no_pad(current_hash_in))
+    counter = b.add_virtual_target()
+    b.register_public_input(counter)
+
+    vk_t = cond.add_verifier_data_public_inputs(b)
+    common.num_public_inputs = len(b.public_inputs)
+
+    condition = b.add_virtual_target()
+    b.assert_zero(b.mul(condition, b.sub(condition, one)))
+
+    inner = rv.add_virtual_proof_with_pis(b, common)
+    inner_pis = inner.public_inputs
+    for t, u in zip(initial_hash, inner_pis[0:4]):
+        b.connect(t, u)
+    actual_in = cond.select_vec(b, condition, inner_pis[4:8], initial_hash)
+    for t, u in zip(current_hash_in, actual_in):
+        b.connect(t, u)
+    b.connect(counter, b.mul_add(condition, inner_pis[8], condition))
+
+    cond.conditionally_verify_cyclic_proof_or_dummy(b, condition, inner,
+                                                    common, **dummy)
+    return condition, inner, vk_t

@@ -13,7 +13,8 @@ from .basic_gates import ArithmeticGate, ConstantGate, NoopGate, \
 from .coset_interpolation import CosetInterpolationGate
 from .extension_gates import ArithmeticExtensionGate, MulExtensionGate
 from .lookup_gates import LookupGate, LookupTableGate, lut_hash
-from .misc_gates import ApplyMat4Gate, Poseidon2InternalPermutationGate
+from .misc_gates import (AddManyGate, ApplyMat4Gate,
+                         Poseidon2InternalPermutationGate)
 from .poseidon import PoseidonGate
 from .poseidon2_bb_gate import Poseidon2BabyBearGate
 from .poseidon2_r0_bb_gate import Poseidon2R0BabyBearGate
@@ -35,6 +36,8 @@ _PATTERNS = [
     (r"Poseidon2R0BabyBearGate \{ num_ops: (\d+), _phantom: "
      r"PhantomData<p3_baby_bear::baby_bear::BabyBear> \}<WIDTH=24>",
      lambda m, s: Poseidon2R0BabyBearGate(int(m[1]))),
+    (r"AddManyGate \{ num_addends: (\d+), num_ops: (\d+) \}",
+     lambda m, s: AddManyGate(int(m[1]), int(m[2]))),
     (r"ApplyMat4Gate \{ num_ops: (\d+), _phantom: "
      r"PhantomData<p3_baby_bear::baby_bear::BabyBear> \}<D=(\d+)>",
      lambda m, s: ApplyMat4Gate(int(m[1]), int(m[2]))),

@@ -1,12 +1,13 @@
-"""ApplyMat4Gate and Poseidon2InternalPermutationGate (reference
-plonky2/src/gates/{apply_mat4.rs, poseidon2_internal_permutation.rs}; the
-JAX package's ``gates/misc_gates.py:84-225``): the linear layers of the
-width-16 Poseidon2 over extension elements, one gate each.  The reference
-serializes them (gate tags 18 and 19); no builder gadget of the reference
-or of the JAX package places them.  Each extension element is D wires, and
-each of its D components goes through the layer on its own.  AddManyGate,
-the third gate of the JAX module (tag 17), waits for ROADMAP Queue 1
-item 4b.
+"""AddManyGate, ApplyMat4Gate and Poseidon2InternalPermutationGate
+(reference plonky2/src/gates/{add_many.rs, apply_mat4.rs,
+poseidon2_internal_permutation.rs}; the JAX package's
+``gates/misc_gates.py``).  AddManyGate (gate tag 17) packs sums of many
+addends, one op a sum; the builder's ``add_many`` places it for 23 addends
+and more.  The other two are the linear layers of the width-16 Poseidon2
+over extension elements, one gate each: the reference serializes them
+(gate tags 18 and 19), and no builder gadget of the reference or of the
+JAX package places them.  Each extension element is D wires, and each of
+its D components goes through the layer on its own.
 """
 
 from __future__ import annotations
@@ -21,6 +22,69 @@ from .base import EvaluationVars, Gate, HostBaseAlgebra
 
 W = C.SPONGE_WIDTH
 
+
+class AddManyGate(Gate):
+    """Sums of ``num_addends`` addends (add_many.rs:24-105): op i takes
+    the addends on wires [(n+1)i, (n+1)i + n) and the sum on wire
+    (n+1)i + n, with one degree-1 constraint."""
+
+    def __init__(self, num_addends: int, num_ops: int):
+        self.num_addends = num_addends
+        self.num_ops = num_ops
+
+    @classmethod
+    def from_config(cls, config, num_addends: int):
+        return cls(num_addends, config.num_routed_wires // (num_addends + 1))
+
+    def id(self):
+        return (f"AddManyGate {{ num_addends: {self.num_addends}, "
+                f"num_ops: {self.num_ops} }}")
+
+    def wires_addends(self, op):
+        base = (self.num_addends + 1) * op
+        return range(base, base + self.num_addends)
+
+    def wire_sum(self, op):
+        return (self.num_addends + 1) * op + self.num_addends
+
+    def num_wires(self):
+        return (self.num_addends + 1) * self.num_ops
+
+    def num_constants(self):
+        return 0
+
+    def degree(self):
+        return 1
+
+    def num_constraints(self):
+        return self.num_ops
+
+    def eval_unfiltered(self, A, vars: EvaluationVars) -> List:
+        lw = vars.local_wires
+        out = []
+        for op in range(self.num_ops):
+            acc = A.zero()
+            for w in self.wires_addends(op):
+                acc = A.add(acc, lw[w])
+            out.append(A.sub(acc, lw[self.wire_sum(op)]))
+        return out
+
+    def generators(self, row, local_constants, spec):
+        return [_AddManyGenerator(self, row, op, spec.p)
+                for op in range(self.num_ops)]
+
+
+class _AddManyGenerator(gen.SimpleGenerator):
+    def __init__(self, gate, row, op, p):
+        self.gate, self.row, self.op, self.p = gate, row, op, p
+
+    def dependencies(self):
+        return [tgt.wire(self.row, w)
+                for w in self.gate.wires_addends(self.op)]
+
+    def run_once(self, witness, out):
+        s = sum(witness.get_targets(self.dependencies())) % self.p
+        out.append((tgt.wire(self.row, self.gate.wire_sum(self.op)), s))
 
 class ApplyMat4Gate(Gate):
     """The 4x4 M4 block of the external layer (apply_mat4.rs); op ``op``

@@ -1,25 +1,27 @@
 """Circuit builder (reference plonky2/src/plonk/circuit_builder.rs:144-1410,
 gadgets/arithmetic.rs:30-165, gadgets/arithmetic_extension.rs,
-gadgets/lookup.rs; the JAX package's ``plonk/builder.py`` without the misc
-gates).
+gadgets/lookup.rs; the JAX package's ``plonk/builder.py``).
 
 The builder is a host frontend: targets, gates placed row by row, copy
 constraints and constants, base-field and extension arithmetic, lookup
-tables and lookups, for the gates the port has (Arithmetic, Constant,
-PublicInput, Noop, Poseidon-GL, Poseidon2-BB width 16 and width 24 (the
-latter for a hashing gadget given ``hasher=hash.poseidon2_r0_bb``), the
-two lookup gates, and the recursive verifier's: the extension arithmetic, reducing,
-random-access, base-sum, coset-interpolation and Poseidon MDS gates,
-placed by ``plonk/gadgets.py``).  ``build`` places the lookup rows and,
-under a zero-knowledge config, the blinding rows, lays out the selectors
-(the lookup selectors too), constants and sigmas, commits the
-constants/sigmas on the device with the port's ``PolynomialBatch`` (the
-NTT, leaf-sponge and Merkle kernels on the card), collects the witness
-generators and hashes the circuit digest.  The hasher is split in two as
-in the reference's configs: ``hasher`` commits and runs the transcript
-(the field's own, or ``hash.keccak_hasher`` for Goldilocks: the Keccak
-config), ``inner_hasher`` (the field's own) serves every hashing gadget
-and the public-input hash.  What this slice does not carry raises
+tables and lookups, for the gates the port has (Arithmetic, AddMany,
+Constant, PublicInput, Noop, Poseidon-GL, Poseidon2-BB width 16 and width
+24 (the latter for a hashing gadget given ``hasher=hash.poseidon2_r0_bb``),
+the two lookup gates, and the recursive verifier's: the extension
+arithmetic, reducing, random-access, base-sum, coset-interpolation and
+Poseidon MDS gates, placed by ``plonk/gadgets.py``).  ``build`` places
+the lookup rows and, under a zero-knowledge config, the blinding rows, lays
+out the selectors (the lookup selectors too), constants and sigmas,
+commits the constants/sigmas on the device with the port's
+``PolynomialBatch`` (the NTT, leaf-sponge and Merkle kernels on the card),
+collects the witness generators and hashes the circuit digest;
+``build_common`` lays out alone.  Cyclic recursion
+(``recursion/conditional.py``) sets ``verifier_data_public_input`` and
+``goal_common_data``, which the layout must meet.  The hasher is split in
+two as in the reference's configs: ``hasher`` commits and runs the
+transcript (the field's own, or ``hash.keccak_hasher`` for Goldilocks: the
+Keccak config), ``inner_hasher`` (the field's own) serves every hashing
+gadget and the public-input hash.  The streaming commit raises
 ``NotImplementedError`` naming its ROADMAP Queue 1 item.
 """
 
@@ -39,6 +41,7 @@ from ..gates.basic_gates import (ArithmeticGate, ConstantGate, NoopGate,
                                  PublicInputGate)
 from ..gates.extension_gates import ArithmeticExtensionGate, MulExtensionGate
 from ..gates.lookup_gates import LookupGate, LookupTableGate
+from ..gates.misc_gates import AddManyGate
 from ..gates.poseidon import PoseidonGate
 from ..gates.poseidon2_bb_gate import Poseidon2BabyBearGate
 from ..hash import keccak_hasher
@@ -101,7 +104,10 @@ class CircuitBuilder:
         self.hasher = self._commit_hasher(hasher)
         # the circuit digest's domain separator (circuit_builder.rs:1301)
         self.domain_separator: List[int] = []
-        # cyclic recursion's goal (circuit_builder.rs:1332): item 4b
+        # cyclic recursion: the verifier data among the public inputs
+        # (circuit_builder.rs:452) and the common data the circuit must
+        # build to (circuit_builder.rs:1332)
+        self.verifier_data_public_input = None
         self.goal_common_data = None
         self.gate_instances: List[GateInstance] = []
         self.gates: Dict[str, object] = {}
@@ -374,16 +380,25 @@ class CircuitBuilder:
     ADD_MANY_THRESHOLD = 23
 
     def add_many(self, xs):
-        """The sum of ``xs``: a chain of ``add`` below the threshold
-        (arithmetic.rs:215-238); at or above it the reference packs
-        AddManyGate ops, not ported (ROADMAP Queue 1 item 4b)."""
+        """The sum of ``xs`` (arithmetic.rs:215-238): a chain of ``add``
+        below the threshold, one AddManyGate op at it, and above it the
+        sum of the sums of chunks of the threshold's size."""
         addends = list(xs)
-        if len(addends) >= self.ADD_MANY_THRESHOLD:
-            raise _not_ported("add_many of 23 or more (AddManyGate)", "4b")
-        out = self.zero()
-        for x in addends:
-            out = self.add(out, x)
-        return out
+        n = len(addends)
+        if n < self.ADD_MANY_THRESHOLD:
+            out = self.zero()
+            for x in addends:
+                out = self.add(out, x)
+            return out
+        if n > self.ADD_MANY_THRESHOLD:
+            return self.add_many([
+                self.add_many(addends[k:k + self.ADD_MANY_THRESHOLD])
+                for k in range(0, n, self.ADD_MANY_THRESHOLD)])
+        gate = AddManyGate.from_config(self.config, n)
+        row, op = self.find_slot(gate, [], [])
+        for t, w in zip(addends, gate.wires_addends(op)):
+            self.connect(t, tgt.wire(row, w))
+        return tgt.wire(row, gate.wire_sum(op))
 
     def mul_many(self, xs):
         out = self.one()
@@ -783,95 +798,23 @@ class CircuitBuilder:
               commit_streaming: bool = False) -> CircuitData:
         """Lay out, commit and index the circuit on ``device`` (the card
         unless the caller asks for the CPU).  ``timings`` gets the seconds
-        of ``gates_and_routing``, ``sigmas``, ``commit`` and ``digest``."""
+        of ``gates_and_routing``, ``sigmas``, ``commit`` and ``digest``.
+        Raises ``ValueError`` when ``goal_common_data`` is set and the
+        circuit's common data differs from it."""
         dev = devmod.resolve(device)
         config = self.config
-        zk = config.zero_knowledge
         if commit_streaming:
             raise _not_ported("the streaming commit", 9)
-        if self.goal_common_data is not None:
-            raise _not_ported("cyclic recursion (goal_common_data)", "4b")
         spec = self.spec
-        p = spec.p
         rate_bits = config.fri_config.rate_bits
         cap_height = config.fri_config.cap_height
 
         with phase(timings, "gates_and_routing", dev):
-            num_public_inputs = len(self.public_inputs)
-            # the public inputs hashed in the circuit (circuit_builder.rs:
-            # 1129-1139); no inputs squeeze the zero state, no gates
-            pi_hash_targets = self.hash_n_to_m_no_pad(
-                self.public_inputs, spec.num_hash_out_elts)
-            pi_gate = self.add_gate(PublicInputGate(spec.num_hash_out_elts),
-                                    [])
-            for i, t in enumerate(pi_hash_targets):
-                self.connect(t, tgt.wire(pi_gate, i))
-
-            # complete the partly used slot gates that zeros do not satisfy
-            # (circuit_builder.rs:1082)
-            for gate_id, slots in list(self.current_slots.items()):
-                gate = self._slot_gates[gate_id]
-                for params, (gate_idx, slot_idx) in list(slots.items()):
-                    if gate.complete_wires(self, gate_idx, slot_idx):
-                        slots.pop(params, None)
-
-            # the lookup rows (circuit_builder.rs:1142)
-            self._add_all_lookups()
-
-            # anti-#456 randomization (circuit_builder.rs:1064-1080)
-            random_wire = None
-            for w in range(spec.num_hash_out_elts, config.num_wires):
-                if w == config.num_wires - 1:
-                    random_wire = (pi_gate, w)
-                self.add_simple_generator(
-                    gen.RandomValueGenerator(tgt.wire(pi_gate, w), p))
-
-            # constant gates and their routing (circuit_builder.rs:1145-1172)
-            while len(self.constants_to_targets) > \
-                    len(self.constant_generators):
-                self.add_gate(ConstantGate(config.num_constants), [])
-            pairs = sorted(self.constants_to_targets.items(),
-                           key=lambda kv: kv[0])
-            for (c, t), cg in zip(pairs, self.constant_generators):
-                self.gate_instances[cg.row].constants[cg.constant_index] = c
-                self.connect(tgt.wire(cg.row, cg.wire_index), t)
-                cg.constant = c
-                self.add_simple_generator(cg)
-
-            # blind, then pad to a power of two (circuit_builder.rs:
-            # 924-980)
-            if zk:
-                self._blind()
-            while len(self.gate_instances) & (len(self.gate_instances) - 1):
-                self.add_gate(NoopGate(), [])
-
-            degree = len(self.gate_instances)
-            degree_bits = host.log2_strict(degree)
-            fri_params = config.fri_config.fri_params(degree_bits, zk)
-            assert fri_params.total_arities() <= \
-                degree_bits + rate_bits - cap_height, \
-                "FRI total reduction arity is too large."
-
-            quotient_degree_factor = config.max_quotient_degree_factor
-            gates = sorted(self.gates.values(),
-                           key=lambda g: (g.degree(), g.id()))
-            selector_polys, selectors_info = \
-                selectors_mod.selector_polynomials(
-                    gates, self.gate_instances, quotient_degree_factor + 1, p)
-            lookup_selectors = []
-            if self.luts:
-                lookup_selectors = selectors_mod.selectors_lookup(
-                    degree, self.lookup_rows) + \
-                    selectors_mod.selector_ends_lookups(degree,
-                                                        self.lookup_rows)
-            constant_vecs = (list(selector_polys) + lookup_selectors
-                             + self._constant_polys(gates))
+            common, random_wire, constant_vecs = self._lay_out()
 
         with phase(timings, "sigmas", dev):
-            subgroup = host.two_adic_subgroup(spec, degree_bits)
-            k_is = host.get_unique_coset_shifts(spec, degree,
-                                                config.num_routed_wires)
-            sigma_vecs, forest = self._sigma_vecs(k_is, subgroup)
+            subgroup = host.two_adic_subgroup(spec, common.degree_bits)
+            sigma_vecs, forest = self._sigma_vecs(common.k_is, subgroup)
             constants_sigmas = np.stack(
                 [np.asarray(v, dtype=np.uint64) for v in constant_vecs]
                 + list(sigma_vecs))
@@ -911,25 +854,8 @@ class CircuitBuilder:
             circuit_digest = self.hasher.hash_no_pad_host(
                 [x for row in cap for x in _digest_elements(row)]
                 + _digest_elements(self._hash_pad(self.domain_separator))
-                + [degree_bits])
+                + [common.degree_bits])
 
-        common = CommonCircuitData(
-            config=config, fri_params=fri_params, gates=gates,
-            selectors_info=selectors_info,
-            quotient_degree_factor=quotient_degree_factor,
-            num_gate_constraints=max(g.num_constraints() for g in gates),
-            num_constants=len(constant_vecs),
-            num_public_inputs=num_public_inputs, k_is=k_is,
-            num_partial_products=(
-                -(-config.num_routed_wires // quotient_degree_factor) - 1),
-            spec=spec,
-            # 1 running sum + the partial sums of the looking slots
-            # (circuit_builder.rs:1290-1299)
-            num_lookup_polys=1 + -(-LookupGate.num_slots_of(config)
-                                   // (quotient_degree_factor - 1))
-            if self.luts else 0,
-            num_lookup_selectors=len(lookup_selectors),
-            luts=list(self.luts))
         prover_only = ProverOnlyCircuitData(
             generators=self.generators,
             generator_indices_by_watches=by_watches,
@@ -946,6 +872,116 @@ class CircuitBuilder:
                            verifier_only=verifier_only, device=dev,
                            F=self.F, hasher=self.hasher,
                            inner_hasher=self.inner_hasher)
+
+    def build_common(self) -> CommonCircuitData:
+        """The common data that ``build`` gives, without the sigmas, the
+        generators or the commit: the rows are laid out (the builder is
+        spent, as after ``build``) and checked against
+        ``goal_common_data``.  The fixed point of cyclic recursion
+        (``recursion/conditional.py:common_data_for_recursion``) needs no
+        more."""
+        return self._lay_out()[0]
+
+    def _lay_out(self):
+        """The public-input hash and gate, the completed slots, the lookup
+        rows, the random wire, the constant gates, the blinding rows and
+        the padding (circuit_builder.rs:1064-1180), then the selectors and
+        the common data (circuit_builder.rs:1180-1300), checked against
+        ``goal_common_data`` (circuit_builder.rs:1332).  Returns (common
+        data, the random wire, the constant columns)."""
+        config = self.config
+        zk = config.zero_knowledge
+        spec = self.spec
+        p = spec.p
+        num_public_inputs = len(self.public_inputs)
+        # the public inputs hashed in the circuit (circuit_builder.rs:
+        # 1129-1139); no inputs squeeze the zero state, no gates
+        pi_hash_targets = self.hash_n_to_m_no_pad(
+            self.public_inputs, spec.num_hash_out_elts)
+        pi_gate = self.add_gate(PublicInputGate(spec.num_hash_out_elts), [])
+        for i, t in enumerate(pi_hash_targets):
+            self.connect(t, tgt.wire(pi_gate, i))
+
+        # complete the partly used slot gates that zeros do not satisfy
+        # (circuit_builder.rs:1082)
+        for gate_id, slots in list(self.current_slots.items()):
+            gate = self._slot_gates[gate_id]
+            for params, (gate_idx, slot_idx) in list(slots.items()):
+                if gate.complete_wires(self, gate_idx, slot_idx):
+                    slots.pop(params, None)
+
+        # the lookup rows (circuit_builder.rs:1142)
+        self._add_all_lookups()
+
+        # anti-#456 randomization (circuit_builder.rs:1064-1080)
+        random_wire = None
+        for w in range(spec.num_hash_out_elts, config.num_wires):
+            if w == config.num_wires - 1:
+                random_wire = (pi_gate, w)
+            self.add_simple_generator(
+                gen.RandomValueGenerator(tgt.wire(pi_gate, w), p))
+
+        # constant gates and their routing (circuit_builder.rs:1145-1172)
+        while len(self.constants_to_targets) > len(self.constant_generators):
+            self.add_gate(ConstantGate(config.num_constants), [])
+        pairs = sorted(self.constants_to_targets.items(),
+                       key=lambda kv: kv[0])
+        for (c, t), cg in zip(pairs, self.constant_generators):
+            self.gate_instances[cg.row].constants[cg.constant_index] = c
+            self.connect(tgt.wire(cg.row, cg.wire_index), t)
+            cg.constant = c
+            self.add_simple_generator(cg)
+
+        # blind, then pad to a power of two (circuit_builder.rs:924-980)
+        if zk:
+            self._blind()
+        while len(self.gate_instances) & (len(self.gate_instances) - 1):
+            self.add_gate(NoopGate(), [])
+
+        degree = len(self.gate_instances)
+        degree_bits = host.log2_strict(degree)
+        fri_params = config.fri_config.fri_params(degree_bits, zk)
+        assert fri_params.total_arities() <= \
+            degree_bits + config.fri_config.rate_bits \
+            - config.fri_config.cap_height, \
+            "FRI total reduction arity is too large."
+
+        quotient_degree_factor = config.max_quotient_degree_factor
+        gates = sorted(self.gates.values(), key=lambda g: (g.degree(), g.id()))
+        selector_polys, selectors_info = selectors_mod.selector_polynomials(
+            gates, self.gate_instances, quotient_degree_factor + 1, p)
+        lookup_selectors = []
+        if self.luts:
+            lookup_selectors = selectors_mod.selectors_lookup(
+                degree, self.lookup_rows) + \
+                selectors_mod.selector_ends_lookups(degree, self.lookup_rows)
+        constant_vecs = (list(selector_polys) + lookup_selectors
+                         + self._constant_polys(gates))
+
+        common = CommonCircuitData(
+            config=config, fri_params=fri_params, gates=gates,
+            selectors_info=selectors_info,
+            quotient_degree_factor=quotient_degree_factor,
+            num_gate_constraints=max(g.num_constraints() for g in gates),
+            num_constants=len(constant_vecs),
+            num_public_inputs=num_public_inputs,
+            k_is=host.get_unique_coset_shifts(spec, degree,
+                                              config.num_routed_wires),
+            num_partial_products=(
+                -(-config.num_routed_wires // quotient_degree_factor) - 1),
+            spec=spec,
+            # 1 running sum + the partial sums of the looking slots
+            # (circuit_builder.rs:1290-1299)
+            num_lookup_polys=1 + -(-LookupGate.num_slots_of(config)
+                                   // (quotient_degree_factor - 1))
+            if self.luts else 0,
+            num_lookup_selectors=len(lookup_selectors),
+            luts=list(self.luts))
+        if self.goal_common_data is not None and \
+                common != self.goal_common_data:
+            raise ValueError("the built common data differs from "
+                             "goal_common_data")
+        return common, random_wire, constant_vecs
 
     def _hash_pad(self, inputs: List[int]):
         """pad10*1, then hash (plonk/config.rs:58-66)."""

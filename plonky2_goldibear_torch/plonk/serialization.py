@@ -14,9 +14,8 @@ BabyBear: 8 u32), or, for a byte hasher (the Keccak config's, passed as
 A lookup circuit's common data carries its tables; the lookup gates (tags
 6 and 7) name theirs by index and hash.  The width-24 Poseidon2 gate has
 no tag in the format, so a circuit that hashes with it in the circuit has
-no bytes.  Not read yet, each raising ``NotImplementedError`` with its
-ROADMAP Queue 1 item: the gate of tag 17 (AddMany; item 4b).  The writers
-are item 11.
+no bytes.  Every other gate tag of the reference's serializer reads (tags
+0-19).  The writers are ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -32,7 +31,8 @@ from ..gates.basic_gates import (ArithmeticGate, ConstantGate, NoopGate,
 from ..gates.coset_interpolation import CosetInterpolationGate
 from ..gates.extension_gates import ArithmeticExtensionGate, MulExtensionGate
 from ..gates.lookup_gates import LookupGate, LookupTableGate
-from ..gates.misc_gates import ApplyMat4Gate, Poseidon2InternalPermutationGate
+from ..gates.misc_gates import (AddManyGate, ApplyMat4Gate,
+                                Poseidon2InternalPermutationGate)
 from ..gates.poseidon import PoseidonGate
 from ..gates.poseidon2_bb_gate import Poseidon2BabyBearGate
 from ..gates.poseidon_mds import PoseidonMdsGate
@@ -42,11 +42,6 @@ from .circuit_data import CommonCircuitData, VerifierOnlyCircuitData
 from .config import CircuitConfig, FriConfig, FriParams, FriReductionStrategy
 from .proof import (FriInitialTreeProof, FriProof, FriQueryRound,
                     FriQueryStep, OpeningSet, Proof, ProofWithPublicInputs)
-
-
-def _not_ported(what: str, item) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 class Buffer:
@@ -187,9 +182,6 @@ def read_selectors_info(buf: Buffer) -> SelectorsInfo:
 # -- gates (the DefaultGateSerializer's tags, reference
 #    gate_serialization.rs:143-166) ------------------------------------------
 
-_UNPORTED_TAGS = {17: ("AddManyGate", "4b")}
-
-
 def _read_lookup_gate(buf: Buffer, make, luts):
     """A lookup gate: its fields, then the table's index and hash."""
     fields = [buf.read_usize() for _ in range(make.__code__.co_argcount - 1)]
@@ -248,13 +240,13 @@ def _read_gate(buf: Buffer, spec: host.FieldSpec, config: CircuitConfig,
         return ReducingGate(buf.read_usize(), D)
     if tag == 16:
         return Poseidon2BabyBearGate.from_config(config)
+    if tag == 17:
+        num_addends = buf.read_usize()
+        return AddManyGate(num_addends, buf.read_usize())
     if tag == 18:
         return ApplyMat4Gate(buf.read_usize(), D)
     if tag == 19:
         return Poseidon2InternalPermutationGate(D)
-    if tag in _UNPORTED_TAGS:
-        name, item = _UNPORTED_TAGS[tag]
-        raise _not_ported(f"{name} (gate tag {tag})", item)
     raise ValueError(f"unknown gate tag {tag}")
 
 

@@ -590,23 +590,42 @@ def test_mul_by_one_returns_the_target():
 
 
 def test_unported_features_raise_with_their_item():
+    """The streaming commit (item 9) raises; ``add_many`` of 23 addends
+    and a set ``goal_common_data`` (item 4b) are ported: one AddManyGate
+    op placed as the JAX builder places it, and a build whose common data
+    differs from its goal refused."""
+    from plonky2_goldibear_tpu.plonk.builder import \
+        CircuitBuilder as JCircuitBuilder
+    from plonky2_goldibear_tpu.plonk.config import \
+        CircuitConfig as JCircuitConfig
+
     cfg = config_of("goldilocks")
     b = CircuitBuilder(cfg)
     x = b.add_virtual_target()
-    for call, item in (
-            (lambda: b.add_many([x] * 23), "4b"),
-            (lambda: b.build(device="cpu", commit_streaming=True), 9)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1 item {item}\\b"):
-            call()
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 9\\b"):
+        b.build(device="cpu", commit_streaming=True)
     # the hashers are ported (the Keccak config was item 7): one the port
     # does not know is refused as unknown, in a gadget and as the builder's
     for call in (lambda: b.permute([x] * 12, hasher=object()),
                  lambda: CircuitBuilder(cfg, hasher=object())):
         with pytest.raises(ValueError, match="unknown hasher"):
             call()
-    b.goal_common_data = object()
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    rows = []
+    for bb in (CircuitBuilder(cfg),
+               JCircuitBuilder(JCircuitConfig.standard_recursion_config_gl())):
+        y = bb.add_virtual_target()
+        s = bb.add_many([y] * 23)
+        rows.append(([i.gate.id() for i in bb.gate_instances],
+                     bb.copy_constraints, s))
+    assert rows[0] == rows[1]
+    assert rows[0][0] == ["AddManyGate { num_addends: 23, num_ops: 3 }"]
+    b = CircuitBuilder(cfg)
+    b.register_public_input(b.add_virtual_target())
+    goal = CircuitBuilder(cfg).build_common()
+    assert goal.num_public_inputs == 0
+    b.goal_common_data = goal
+    with pytest.raises(ValueError, match="goal_common_data"):
         b.build(device="cpu")
 
 

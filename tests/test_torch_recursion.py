@@ -378,11 +378,18 @@ def test_ext_mix_witness_matches_jax(ext_mix):
 
 
 def test_unported_gadgets_raise_with_their_item():
-    """The sum of 23 addends, one AddManyGate in the reference."""
-    b = CircuitBuilder(config())
-    x = b.add_virtual_target()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4b"):
-        b.add_many([x] * 23)
+    """The sum of 23 addends, one AddManyGate op in the reference (ROADMAP
+    Queue 1 item 4b, now ported): the same rows, copies and slots as the
+    JAX builder's, and the op's sum wire is the result."""
+    states = []
+    for b in _both_builders():
+        x = b.add_virtual_target()
+        b.register_public_input(b.add_many([x] * 23))
+        states.append(_state(b))
+    assert states[0] == states[1]
+    assert [g for g, _ in states[0][0]] == [
+        "AddManyGate { num_addends: 23, num_ops: 3 }"]
+    assert states[0][3] == [("w", 0, 23)]
 
 
 def test_exponentiation_gadgets_match_jax():

@@ -316,14 +316,19 @@ def test_fixture_challenges_match_jax(bins, field):
 
 
 def test_unported_parts_raise_with_their_item():
-    def tag(n):
-        return ser._read_gate(ser.Buffer(n.to_bytes(4, "little")
-                                         + bytes(8)), host.GOLDILOCKS, None)
+    """Gate tag 17 (AddManyGate, ROADMAP Queue 1 item 4b) reads now: its
+    two fields, and the id the reference prints; an unknown tag raises."""
+    from plonky2_goldibear_torch.gates.misc_gates import AddManyGate
 
-    for t, item in ((17, "4b"),):
-        with pytest.raises(NotImplementedError,
-                           match=f"Queue 1 item {item}\\b"):
-            tag(t)
+    def tag(n, fields=(0, 0)):
+        return ser._read_gate(ser.Buffer(n.to_bytes(4, "little") + b"".join(
+            v.to_bytes(8, "little") for v in fields)), host.GOLDILOCKS, None)
+
+    gate = tag(17, (23, 3))
+    assert gate == AddManyGate(23, 3)
+    assert gate.id() == "AddManyGate { num_addends: 23, num_ops: 3 }"
+    with pytest.raises(ValueError, match="unknown gate tag 20"):
+        tag(20)
 
 
 # --------------------------------------------------------------------------
