@@ -180,6 +180,20 @@
    step); a tampered copy of each proof is rejected; then every kernel at
    each new shape.
 
+The witness replay, in phases 4 and 6-10: every circuit the script
+witnesses is witnessed twice through ``CircuitData.circuit``
+(``_witness_twice``): first by the fixpoint, which records the circuit's
+schedule for its set of preset targets (unless a call before recorded it:
+the conditional outer's second condition, the IVC's later steps), then by
+replay from a fresh rng of the same seed.  The dense wire matrix, the
+public inputs and the rng state after each must be equal, and each circuit
+prints ``record_s``, ``replay_s`` (host seconds, the Python-set inputs and
+the lookup multiplicities included), and the schedule's ``n_native``,
+``n_python`` and instruction count.  The proves after it, and the small
+circuits' proofs against the JAX proofs (the 2^6 chains and their retries,
+phase 7's and 8's circuits, the Keccak x^31 circuit, fib_inner), come from
+a replayed witness.
+
 Each phase prints the script's seconds when it starts.
 
 Between 3 and 4, the probe phase: each dependent-chain probe kernel
@@ -589,6 +603,56 @@ def _recorded(calls, label, fn):
         calls[label], ops.calls = ops.calls, None
 
 
+def _rng_state(rng):
+    if hasattr(rng, "counter"):
+        return rng.counter
+    return rng.bit_generator.state
+
+
+# every circuit's witness replay: label -> record_s, replay_s and the
+# schedule's counts
+WITNESS = {}
+
+
+def _witness_twice(data, pw, make_rng, label, failures):
+    """The witness of ``pw`` twice through ``data.circuit``: first from
+    ``make_rng()`` (the fixpoint, which records the schedule, unless one
+    was recorded before), then by replay from a fresh ``make_rng()``.  The
+    dense matrix, the public inputs and the rng state after each must be
+    equal, and the second must replay.  Returns (the replayed circuit, its
+    rng, the first call's host seconds)."""
+    import torch
+
+    first, again = {}, {}
+    rng1 = make_rng()
+    t0 = time.perf_counter()
+    c1 = data.circuit(pw, rng1, first)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    rng2 = make_rng()
+    c2 = data.circuit(pw, rng2, again)
+    torch.cuda.synchronize()
+    stats = data.witgen_schedule(pw).stats()
+    ok = {"replayed": set(again) == {"replay_s"},
+          "wires": bool(torch.equal(c1.wires, c2.wires)),
+          "public_inputs": c1.public_inputs == c2.public_inputs,
+          "rng": _rng_state(rng1) == _rng_state(rng2)}
+    rec = dict(record_s=first.get("record_s"),
+               replay_s=again.get("replay_s"), **stats, equal=ok)
+    if "record_s" not in first:
+        rec["first_replay_s"] = first.get("replay_s")
+    WITNESS[label] = rec
+    print(f"{label} witness: record_s "
+          + (f"{rec['record_s']:.4f}" if rec["record_s"] is not None
+             else f"(recorded before; replay {rec['first_replay_s']:.4f})")
+          + f", replay_s {rec['replay_s']:.4f}, n_native {stats['n_native']}"
+          f", n_python {stats['n_python']}, n_instr {stats['n_instr']}; "
+          "replay vs fixpoint: " + json.dumps(ok))
+    failures.extend(f"{label}: the replayed witness's {k} differs from the "
+                    "fixpoint's" for k, v in ok.items() if not v)
+    return c2, rng2, first_s
+
+
 def _built(make, config, label, calls, timings=None, spec=None,
            hasher=None):
     """(data, inputs, gadgets s, build s, launches): the circuit of ``make``
@@ -705,10 +769,9 @@ def phase_zk_lookups(report, failures, calls, made) -> None:
     pw = PartialWitness()
     rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
     rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
-    t0 = time.perf_counter()
-    circuit = outer.circuit(pw, np.random.default_rng(2))
-    torch.cuda.synchronize()
-    witgen_s = time.perf_counter() - t0
+    circuit, _, witgen_s = _witness_twice(
+        outer, pw, lambda: np.random.default_rng(2), "zk regression outer",
+        failures)
     print(f"zk regression outer: gadgets {gadgets_s:.4f} s, build "
           f"{build_s:.4f} s, witgen {witgen_s:.4f} s")
     ops.calls = []
@@ -750,10 +813,8 @@ def phase_zk_lookups(report, failures, calls, made) -> None:
     expect("u16 table 2^12 built vs the JAX build", ok)
     pw = PartialWitness()
     pw.set_targets(ins, circuits.u16_inputs())
-    t0 = time.perf_counter()
-    circuit = u16.circuit(pw, np.random.default_rng(3))
-    torch.cuda.synchronize()
-    witgen_s = time.perf_counter() - t0
+    circuit, _, witgen_s = _witness_twice(
+        u16, pw, lambda: np.random.default_rng(3), "u16 table", failures)
     print(f"u16 table: gadgets {gadgets_s:.4f} s, build {build_s:.4f} s, "
           f"witgen {witgen_s:.4f} s")
     host_wires = gl.to_ints(circuit.wires)
@@ -808,12 +869,14 @@ def phase_zk_lookups(report, failures, calls, made) -> None:
         data, ins, *_ = _built(make, config, name, {})
         pw = PartialWitness()
         pw.set_targets(ins, values)
-        rng = NonRandomRng(1)
-        proof = data.prove(pw, rng=rng)
+        _witness_twice(data, pw, NonRandomRng, name, failures)
+        rng, t = NonRandomRng(1), {}
+        proof = data.prove(pw, rng=rng, timings=t)
         arrays, meta = read_fixture(os.path.join(ROOT, DATA.format(
             name + ".npz")))
         flat = flatten_proof(proof)
         ok = {"meta": circuit_meta(data, "goldilocks") == meta,
+              "proved_from_a_replay": "replay_s" in t,
               "constants_sigmas_cap": bool(np.array_equal(np.asarray(
                   data.verifier_only.constants_sigmas_cap, np.uint64),
                   arrays["constants_sigmas_cap"])),
@@ -840,10 +903,8 @@ def phase_zk_lookups(report, failures, calls, made) -> None:
     pw = PartialWitness()
     rv.set_proof_with_pis_target(pw, proof_t, tip5_proof)
     rv.set_verifier_data_target(pw, vk_t, tip5.verifier_only)
-    rng = NonRandomRng(1)
-    t0 = time.perf_counter()
-    circuit = lr.circuit(pw, rng)
-    witgen_s = time.perf_counter() - t0
+    circuit, rng, witgen_s = _witness_twice(
+        lr, pw, NonRandomRng, "lookup recursion (C)", failures)
     import hashlib
     digests = np.stack([np.frombuffer(hashlib.sha256(np.ascontiguousarray(
         col, dtype=np.uint64).tobytes()).digest(), dtype=np.uint8)
@@ -920,10 +981,8 @@ def phase_bb_recursion(inner, inner_proof, report, failures, calls,
     pw = PartialWitness()
     rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
     rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
-    t0 = time.perf_counter()
-    circuit = outer.circuit(pw, NonRandomRng(1))
-    torch.cuda.synchronize()
-    witgen_s = time.perf_counter() - t0
+    circuit, _, witgen_s = _witness_twice(outer, pw, NonRandomRng,
+                                          "BB recursive outer", failures)
     ok["public_inputs"] = circuit.public_inputs == \
         list(inner_proof.public_inputs)
     label = f"BB recursive 2^{outer.common.degree_bits}"
@@ -959,12 +1018,14 @@ def phase_bb_recursion(inner, inner_proof, report, failures, calls,
                                spec=spec)
         pw = PartialWitness()
         pw.set_targets(ins, values)
-        rng = NonRandomRng(1)
+        _witness_twice(data, pw, NonRandomRng, name, failures)
+        rng, t = NonRandomRng(1), {}
         proof = _recorded(calls, f"{name}_prove",
-                          lambda: data.prove(pw, rng=rng))
+                          lambda: data.prove(pw, rng=rng, timings=t))
         arrays, meta = read_fixture(os.path.join(ROOT, DATA.format(
             name + ".npz")))
         ok = {"meta": circuit_meta(data, "babybear") == meta,
+              "proved_from_a_replay": "replay_s" in t,
               "constants_sigmas_cap": bool(np.array_equal(np.asarray(
                   data.verifier_only.constants_sigmas_cap, np.uint64),
                   arrays["constants_sigmas_cap"])),
@@ -1017,10 +1078,11 @@ def phase_keccak(inner, inner_proof, report, failures, calls,
                          "keccak_pow31_build", calls, hasher=keccak_hasher)
     pw = PartialWitness()
     pw.set_target(x, circuits.KECCAK_POW31_INPUT)
-    rng = NonRandomRng(1)
+    _witness_twice(data, pw, NonRandomRng, "keccak_pow31", failures)
+    rng, t = NonRandomRng(1), {}
     ops.reset_launches()
     proof = _recorded(calls, "keccak_pow31_prove",
-                      lambda: data.prove(pw, rng=rng))
+                      lambda: data.prove(pw, rng=rng, timings=t))
     small_launches = ops.launch_counts()
     arrays, meta = read_fixture(os.path.join(ROOT, DATA.format(
         "keccak_pow31.npz")))
@@ -1029,6 +1091,7 @@ def phase_keccak(inner, inner_proof, report, failures, calls,
     proof_j = ser.read_proof_with_public_inputs(
         _read_bin("keccak_pow31_proof.bin"), common_j, hasher=keccak_hasher)
     ok = {"meta": circuit_meta(data, "goldilocks") == meta,
+          "proved_from_a_replay": "replay_s" in t,
           **_common_equal(data.common, common_j),
           "constants_sigmas": bool(np.array_equal(
               gl.to_ints(data.prover_only.constants_sigmas_values),
@@ -1070,10 +1133,8 @@ def phase_keccak(inner, inner_proof, report, failures, calls,
     pw = PartialWitness()
     rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
     rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
-    t0 = time.perf_counter()
-    circuit = outer.circuit(pw, NonRandomRng(1))
-    torch.cuda.synchronize()
-    witgen_s = time.perf_counter() - t0
+    circuit, _, witgen_s = _witness_twice(outer, pw, NonRandomRng,
+                                          "Keccak outer", failures)
     ok["public_inputs"] = circuit.public_inputs == \
         list(inner_proof.public_inputs)
     label = f"Keccak outer 2^{outer.common.degree_bits}"
@@ -1116,12 +1177,8 @@ def _witness_and_prove(data, pw, label, failures, calls, kernels, reps=0):
     from plonky2_goldibear_torch.iop.generator import NonRandomRng
     from plonky2_goldibear_torch.plonk import prover
 
-    rng = NonRandomRng(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    circuit = data.circuit(pw, rng)
-    torch.cuda.synchronize()
-    witgen_s = time.perf_counter() - t0
+    circuit, rng, witgen_s = _witness_twice(data, pw, NonRandomRng, label,
+                                            failures)
     ops.reset_launches()
     timings = {}
     t0 = time.perf_counter()
@@ -1234,6 +1291,7 @@ def phase_cyclic(inner, inner_proof, report, failures, calls, made) -> None:
     fib, fib_in, _ = built("fib_inner", lambda b, t: circuits.fib_inner(b))
     pw = PartialWitness()
     pw.set_targets(fib_in, circuits.FIB_INNER_INPUTS)
+    _witness_twice(fib, pw, NonRandomRng, "fib_inner", failures)
     fib_proof = fib.prove(pw, rng=NonRandomRng(1))
     fib.verify(fib_proof)
     got = flatten_proof(fib_proof)
@@ -1316,6 +1374,10 @@ def phase_cyclic(inner, inner_proof, report, failures, calls, made) -> None:
     for _ in range(3):
         h = poseidon_gl.hash_no_pad_host(h)
     ok = {"counters": [s["counter"] for s in steps] == [0, 1, 2],
+          # one set of presets: step 0 recorded, steps 1 and 2 replayed
+          "steps_1_2_replayed": all(
+              WITNESS[f"cyclic_step{i}"]["record_s"] is None
+              for i in (1, 2)),
           "initial_hash": prev.public_inputs[:4]
           == list(circuits.CYCLIC_INITIAL_HASH),
           "hash_chain": prev.public_inputs[4:8] == h}
@@ -1450,10 +1512,10 @@ def phase_recursion(inner, inner_proof, report, failures, calls,
         pw = PartialWitness()
         rv.set_proof_with_pis_target(pw, proof_t, inner_proof)
         rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
-        t0 = time.perf_counter()
-        circuit = outer.circuit(pw, NonRandomRng(1))
-        torch.cuda.synchronize()
-        rec["witgen_s"].append(time.perf_counter() - t0)
+        circuit, _, witgen_s = _witness_twice(
+            outer, pw, NonRandomRng, f"GL recursive outer (build {rep})",
+            failures)
+        rec["witgen_s"].append(witgen_s)
 
     def blob(part):
         with open(os.path.join(ROOT, OUTER_BIN.format(part)), "rb") as f:
@@ -2056,11 +2118,9 @@ def main() -> int:
             launches = ops.launch_counts()
             pw = PartialWitness()
             pw.set_target(x, 3)
-            rng = NonRandomRng(1)
-            t0 = time.perf_counter()
-            circuit = data.circuit(pw, rng)
-            torch.cuda.synchronize()
-            rec["witgen_s"].append(time.perf_counter() - t0)
+            circuit, rng, witgen_s = _witness_twice(
+                data, pw, NonRandomRng, f"{field} 2^{bits} chain", failures)
+            rec["witgen_s"].append(witgen_s)
             rec["gadgets_s"].append(gadgets_s)
             rec["build_s"].append(build_s)
             rec["build_phases"].append(timings)
@@ -2341,6 +2401,12 @@ def main() -> int:
     ranking.sort(key=lambda r: -r["excess_ms"])
     report["ranking"] = ranking
     print("rule-2 ranking: " + json.dumps(ranking))
+    # every witnessed circuit: recorded once, replayed after
+    report["witness"] = WITNESS
+    print("witness record/replay: " + json.dumps(
+        {k: {n: (round(v, 4) if isinstance(v, float) else v)
+             for n, v in r.items() if n != "equal"}
+         for k, r in WITNESS.items()}))
     phase_start("end")
 
     os.makedirs(os.path.join(ROOT, OUT_DIR), exist_ok=True)

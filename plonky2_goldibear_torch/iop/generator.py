@@ -6,7 +6,10 @@ plonky2/field/src/types.rs:40-131; the JAX package's ``iop/generator.py``).
 Generators run on the host over python ints.  The random state is explicit:
 a ``NonRandomRng`` (the reference's ``disable-randomness`` counter RNG) or
 a ``numpy.random.Generator``, passed by the caller of
-``generate_partial_witness`` and kept on the ``PartitionWitness``.  The
+``generate_partial_witness`` and kept on the ``PartitionWitness``.
+``generate_partial_witness`` runs the fixpoint once for each set of
+preset targets and replays its recorded schedule after that
+(``native/``).  The
 same counter start, or ``np.random.default_rng(seed)`` against the JAX
 package's ``seed_randomness(seed)``, gives the same value sequence as the
 JAX functions.
@@ -87,10 +90,10 @@ def rand_field_elements(p: int, rng: Rng, n: int) -> np.ndarray:
         return np.zeros(0, np.uint64)
     if isinstance(rng, NonRandomRng):
         return _counter_draws(p, rng, n)
-    words = rng.integers(0, 1 << 62, size=2 * n, dtype=np.int64).tolist()
-    return np.fromiter(((h << 62 | lo) % p for h, lo in
-                        zip(words[0::2], words[1::2])), dtype=np.uint64,
-                       count=n)
+    # python ints in an object array: 124-bit values, one C loop an op
+    words = rng.integers(0, 1 << 62, size=2 * n,
+                         dtype=np.int64).astype(object)
+    return ((words[0::2] << 62 | words[1::2]) % p).astype(np.uint64)
 
 
 def rand_field_element(p: int, rng: Rng) -> int:
@@ -182,13 +185,53 @@ class RandomRowGenerator(SimpleGenerator):
         out.extend((tgt.wire(self.row, w), int(v))
                    for w, v in zip(self.wires, vals.tolist()))
 
+    def replay_values(self, witness):
+        """``run_once``'s draws as (dense wire indices, values), for the
+        replay's bulk store (``native/schedule.py``)."""
+        vals = rand_field_elements(self.p, witness.rng, len(self.wires))
+        return self.row * witness.num_wires + np.asarray(self.wires), vals
+
+
+def schedule_key(inputs: PartialWitness, common_data) -> frozenset:
+    """The set of preset target indices a schedule is valid for."""
+    nw, n = common_data.config.num_wires, common_data.degree
+    return frozenset(tgt.target_index(t, nw, n)
+                     for t in inputs.target_values)
+
 
 def generate_partial_witness(inputs: PartialWitness, prover_data,
                              common_data, rng: Rng) -> PartitionWitness:
+    """The witness of ``inputs``, drawing from ``rng``.
+
+    The first call for a set of preset targets runs the fixpoint
+    (``_fixpoint_generate``) and lowers its completion order into a
+    schedule kept in ``prover_data.witgen_schedules``
+    (``native/schedule.py``); every later call with the same set replays
+    that schedule: the same values, and the same draws from ``rng`` in the
+    same order.  A circuit witnessed once pays the lowering for nothing:
+    a few ms for a dummy circuit, a fifth of the fixpoint for a recursive
+    outer."""
+    key = schedule_key(inputs, common_data)
+    sched = prover_data.witgen_schedules.get(key)
+    if sched is not None:
+        return sched.replay(inputs, prover_data, common_data, rng)
+    witness, order = _fixpoint_generate(inputs, prover_data, common_data,
+                                        rng)
+    # imported here: the lowerers import the gates, which import this module
+    from ..native.schedule import compile_schedule
+
+    prover_data.witgen_schedules[key] = compile_schedule(
+        order, prover_data, common_data)
+    return witness
+
+
+def _fixpoint_generate(inputs: PartialWitness, prover_data, common_data,
+                       rng: Rng):
     """The round-based fixpoint scheduler (reference generator.rs:25-106):
     every pending generator runs in list order, and each newly set
     representative queues its watchers for the next round.  ``rng`` feeds
-    the random-value generators."""
+    the random-value generators.  Returns the witness and the generators'
+    completion order."""
     config = common_data.config
     generators = prover_data.generators
     by_watches: Dict[int, List[int]] = prover_data.generator_indices_by_watches
@@ -200,7 +243,7 @@ def generate_partial_witness(inputs: PartialWitness, prover_data,
 
     pending = list(range(len(generators)))
     expired = [False] * len(generators)
-    remaining = len(generators)
+    order: List[int] = []
     buffer: List = []
     while pending:
         next_pending: List[int] = []
@@ -209,7 +252,7 @@ def generate_partial_witness(inputs: PartialWitness, prover_data,
                 continue
             if generators[gi].run(witness, buffer):
                 expired[gi] = True
-                remaining -= 1
+                order.append(gi)
             for t, v in buffer:
                 rep = witness.set_target_returning_rep(t, v)
                 if rep is not None and rep in by_watches:
@@ -218,5 +261,6 @@ def generate_partial_witness(inputs: PartialWitness, prover_data,
             buffer.clear()
         pending = next_pending
 
+    remaining = len(generators) - len(order)
     assert remaining == 0, f"{remaining} generators weren't run"
-    return witness
+    return witness, order

@@ -6,6 +6,12 @@ Each ``csrc/<name>.cu`` is compiled at first use by one ``nvcc`` for
 hash of the sources so an edit rebuilds.  ``build_all`` starts one ``nvcc``
 per source, all at once.  Nothing here runs at import: the CPU path never
 needs ``nvcc``.
+
+``host_lib`` builds a host C source of ``csrc/`` (``witgen.c``, the
+witness-replay VM) with the system C compiler ``cc -O2 -shared -fPIC``,
+under the same directory and named by the hash of its source.  It needs no
+``nvcc``, so the CPU path builds it too; without a working compiler it
+raises.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("ntt_gl", "poseidon_gl", "ntt_bb", "poseidon2_bb", "keccak",
            "probes")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+HOST_CC = "cc"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -107,3 +114,42 @@ def stream_ptr(device) -> int:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {what} failed with error {err}")
+
+
+def _host_lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".c"), "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+
+
+def build_host(name: str) -> str:
+    """Compile ``csrc/<name>.c`` with ``HOST_CC`` unless it is built;
+    returns the library's path.  Raises ``RuntimeError`` naming the
+    compiler when it is missing or fails."""
+    out = _host_lib_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = out + f".{os.getpid()}.tmp"
+    cmd = [HOST_CC, "-O2", "-shared", "-fPIC", "-o", tmp,
+           os.path.join(CSRC, name + ".c")]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"the C compiler {HOST_CC!r} could not run for "
+                           f"{name}.c: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"the C compiler {HOST_CC!r} failed for "
+                           f"{name}.c:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def host_lib(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.c``, built on
+    first use."""
+    key = name + ".c"
+    with _LOCK:
+        if key not in _LIBS:
+            _LIBS[key] = ctypes.CDLL(build_host(name))
+        return _LIBS[key]

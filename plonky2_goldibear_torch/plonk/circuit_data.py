@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -46,11 +47,10 @@ from ..fri.oracle import PolynomialBatch
 from ..gates import gate_from_id
 from ..gates.selectors import SelectorsInfo
 from ..hash import keccak_hasher, poseidon2_bb, poseidon_gl
-from ..iop.generator import Rng, generate_partial_witness
+from ..iop.generator import Rng, generate_partial_witness, schedule_key
 from . import prover
 from .config import (CircuitConfig, FriConfig, FriParams,
                      FriReductionStrategy)
-from .witness_transfer import WitnessTransfer
 
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
@@ -462,6 +462,10 @@ class ProverOnlyCircuitData:
     # (input, output) target pairs
     lookup_rows: List[Tuple[int, int, int]] = field(default_factory=list)
     lut_to_lookups: List[List] = field(default_factory=list)
+    # the recorded witness schedules, by set of preset targets
+    # (iop/generator.py:generate_partial_witness)
+    witgen_schedules: Dict = field(default_factory=dict, repr=False,
+                                   compare=False)
 
 
 @dataclass
@@ -477,24 +481,40 @@ class CircuitData:
     inner_hasher: object = poseidon_gl
     cache: Dict = field(default_factory=dict, repr=False, compare=False)
 
-    def circuit(self, pw, rng: Rng) -> Circuit:
+    def circuit(self, pw, rng: Rng,
+                timings: Optional[Dict[str, float]] = None) -> Circuit:
         """The circuit with the witness of the partial witness ``pw``:
         witness generation on the host, drawing from ``rng`` (and a lookup
-        circuit's multiplicities), then the wire matrix on the device."""
+        circuit's multiplicities), then the wire matrix on the device.
+        The first call for a set of preset targets runs the fixpoint and
+        records its schedule, every later one replays it
+        (``iop/generator.py``); ``timings`` gets the host seconds of
+        either as ``record_s`` or ``replay_s``."""
         po = self.prover_only
+        replay = schedule_key(pw, self.common) in po.witgen_schedules
+        t0 = time.perf_counter()
         witness = generate_partial_witness(pw, po, self.common, rng)
         prover.set_lookup_wires(po, self.common, witness)
+        dense = witness.full_witness()
+        if timings is not None:
+            name = "replay_s" if replay else "record_s"
+            timings[name] = timings.get(name, 0.0) + \
+                time.perf_counter() - t0
         return Circuit(
             common=self.common,
             constants_sigmas_values=po.constants_sigmas_values,
             constants_sigmas_commitment=po.constants_sigmas_commitment,
-            wires=WitnessTransfer.from_witness(
-                self.F, witness, self.device).device_values(),
+            wires=self.F.from_ints(dense, self.device),
             public_inputs=witness.get_targets(po.public_inputs),
             circuit_digest=po.circuit_digest, random_wire=po.random_wire,
             device=self.device, F=self.F, hasher=self.hasher,
             inner_hasher=self.inner_hasher, cache=self.cache,
             lookup_rows=po.lookup_rows)
+
+    def witgen_schedule(self, pw):
+        """The recorded schedule ``pw``'s witness replays, or None."""
+        return self.prover_only.witgen_schedules.get(
+            schedule_key(pw, self.common))
 
     def prove(self, pw, rng: Optional[Rng] = None,
               timings: Optional[Dict[str, float]] = None):
@@ -503,12 +523,12 @@ class CircuitData:
         ``NonRandomRng`` for the reference's deterministic draws, else a
         numpy generator, fresh from the OS when none is given), so the
         permutation-argument retry goes on from where witness generation
-        left it.  ``timings`` gets ``witness_generation`` beside the
-        prover's phases."""
+        left it.  ``timings`` gets ``witness_generation`` (and its host
+        part, ``record_s`` or ``replay_s``) beside the prover's phases."""
         if rng is None:
             rng = np.random.default_rng()
         with prover.phase(timings, "witness_generation", self.device):
-            circuit = self.circuit(pw, rng)
+            circuit = self.circuit(pw, rng, timings)
         return prover.prove(circuit, self.device, timings, rng)
 
     def verify(self, proof_with_pis) -> None:

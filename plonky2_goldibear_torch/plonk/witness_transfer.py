@@ -23,11 +23,6 @@ class WitnessTransfer:
         self.F = F
         self.values = values
 
-    @classmethod
-    def from_witness(cls, F, witness, device) -> "WitnessTransfer":
-        """From a ``PartitionWitness``: equal to its ``full_witness()``."""
-        return cls(F, F.from_ints(witness.full_witness(), device))
-
     def set(self, row: int, col: int, value: int):
         """Wire ``col`` at ``row`` := value, in a copy: the tensor it was
         made from stays as it was."""
