@@ -128,10 +128,13 @@
 
 9. the Keccak config (``hash/keccak_hasher.py``, the reference's
    KeccakGoldilocksConfig), before phase 5 too.  Phase 3 has held the
-   Keccak kernels (``csrc/keccak.cu``: rows, Merkle levels, hash-onion)
-   against their plain versions at row lengths around the rate's edges
-   (``KECCAK_LENGTHS``) and the hash-onion at the grind's 2^17 states;
-   then:
+   Keccak kernels (``csrc/keccak.cu``: rows, Merkle levels and their
+   subtree tail, hash-onion) against their plain versions at row lengths
+   around the rate's edges (``KECCAK_LENGTHS``), the hash-onion at the
+   grind's 2^17 states, and every launch geometry the plans of
+   ``ops/keccak.py`` choose between (each group size on rows and on a
+   level, each subtree depth for caps 1 and 16, whole trees to caps 1 and
+   16); then:
    - the small circuit of the JAX package's Keccak test
      (``circuits.keccak_pow31``, 8 PoW bits) built with
      ``hasher=keccak_hasher`` and proved from ``NonRandomRng(1)``,
@@ -336,11 +339,17 @@ SOURCES = {
         "plonky2_goldibear_torch/csrc/keccak.cu",
         "plonky2_goldibear_tpu/hash/keccak_device.py:85",
         "keccak_merkle_levels"),
+    # the narrow top levels of the same Merkle trees, one launch
+    "keccak_merkle_subtree": (
+        "plonky2_goldibear_torch/csrc/keccak.cu",
+        "plonky2_goldibear_tpu/hash/keccak_device.py:85",
+        "keccak_merkle_subtree"),
     "keccak_permute": ("plonky2_goldibear_torch/csrc/keccak.cu",
                        "plonky2_goldibear_tpu/hash/keccak_device.py:85",
                        "keccak_permute"),
 }
-KECCAK_COUNTERS = ("keccak_rows", "keccak_merkle_levels", "keccak_permute")
+KECCAK_COUNTERS = ("keccak_rows", "keccak_merkle_levels",
+                   "keccak_merkle_subtree", "keccak_permute")
 
 
 # a launch counter -> its kernel
@@ -1119,7 +1128,8 @@ def phase_keccak(inner, inner_proof, report, failures, calls,
         calls, timings, hasher=keccak_hasher)
     failures.extend(f"kernel {k} was not launched by the Keccak outer's "
                     "build" for k in ("ntt", "keccak_rows",
-                                      "keccak_merkle_levels")
+                                      "keccak_merkle_levels",
+                                      "keccak_merkle_subtree")
                     if build_launches.get(k, 0) <= 0)
     proof_t, vk_t = holder["t"]
     want = ser.read_common_circuit_data(_read_bin(
@@ -1829,15 +1839,79 @@ def main() -> int:
               lambda: K_kec.permute_plain(st), 10, 2 * st.numel() * 8, 0,
               main=main, int_ops=3 * n * KECCAK_F_OPS)
 
+    def keccak_same(key, got, want):
+        """A plan branch's output against its plain version (untimed)."""
+        torch.cuda.synchronize()
+        if not isinstance(got, list):
+            got, want = [got], [want]
+        mism = sum(_compare(a, b)[0] for a, b in zip(got, want)) + \
+            abs(len(got) - len(want))
+        report.setdefault("keccak_branches", {})[key] = mism
+        if mism:
+            failures.append(f"{key}: {mism} mismatches")
+
     try:
         for length in KECCAK_LENGTHS:
             keccak_rows_check(f"keccak_rows_1000x{length}", 1000, length)
         keccak_rows_check("keccak_rows_2^15x1080", 1 << 15, 1080, main=True)
         keccak_levels_check("keccak_merkle_levels_2^15_to_cap16", 1 << 15,
                             11, main=True)
+        # the tail of that tree alone: its plan's subtree launch
+        plan = K_kec.merkle_plan(1 << 15, 11, sms)
+        print("keccak merkle plan 2^15 x 11 layers: " + json.dumps(plan))
+        tail = plan[-1]
+        _, width, layers = tail
+        d_tail = rand_bytes(width, KECCAK_DIGEST)
+        parents = width - (width >> layers)
+        check(f"keccak_merkle_subtree_{width}_x{layers}",
+              "keccak_merkle_subtree",
+              lambda: K_kec._levels(d_tail, [tail]),
+              lambda: K_kec.merkle_levels_plain(d_tail, layers), 10,
+              (width + parents) * KECCAK_DIGEST, 0, main=True,
+              int_ops=parents * KECCAK_F_OPS)
         keccak_permute_check("keccak_permute_2^17", KECCAK_PERMUTE_STATES,
                              main=True)
         keccak_permute_check("keccak_permute_ragged_1000", 1000)
+        # every plan branch, untimed: each group size on rows (ragged n,
+        # a start off an 8-byte boundary) and on a level (a start off a
+        # 4-byte boundary); each subtree depth for caps 1 and 16; whole
+        # trees to caps 1 and 16
+        for n, length, off in ((1000, 256, 0), (1 << 11, 256, 0),
+                               (1000, 137, 1)):
+            raw = rand_bytes(n * length + off)
+            rows = raw[off:].view(n, length)
+            want = K_kec.hash_rows_plain(rows)
+            for gr in K_kec.GROUPS:
+                threads = K_kec.block_for(K_kec.threads_for(n, gr), sms)
+                keccak_same(f"keccak_rows_{n}x{length}+{off}_g{gr}",
+                            K_kec._rows(rows, KECCAK_DIGEST, gr, threads),
+                            want)
+        for off in (0, 3):
+            raw = rand_bytes((1 << 12) * KECCAK_DIGEST + off)
+            d_lvl = raw[off:].view(1 << 12, KECCAK_DIGEST)
+            want = K_kec.merkle_levels_plain(d_lvl, 1)
+            for gr in K_kec.GROUPS:
+                step = ("level", 1 << 11, gr, K_kec.block_for(
+                    K_kec.threads_for(1 << 11, gr), sms))
+                keccak_same(f"keccak_level_2^11+{off}_g{gr}",
+                            K_kec._levels(d_lvl, [step]), want)
+        for cap in (1, 16):
+            for layers in range(1, K_kec.TAIL_LAYERS + 1):
+                d_sub = rand_bytes(cap << layers, KECCAK_DIGEST)
+                keccak_same(f"keccak_subtree_cap{cap}_x{layers}",
+                            K_kec._levels(d_sub, [("subtree", cap << layers,
+                                                   layers)]),
+                            K_kec.merkle_levels_plain(d_sub, layers))
+        for n, layers in ((1 << 15, 15), (1 << 17, 13), (1 << 11, 11),
+                          (2, 1)):
+            d_tree = rand_bytes(n, KECCAK_DIGEST)
+            print(f"keccak merkle plan 2^{n.bit_length() - 1} x {layers} "
+                  "layers: " + json.dumps(K_kec.merkle_plan(n, layers, sms)))
+            keccak_same(f"keccak_tree_2^{n.bit_length() - 1}_x{layers}",
+                        K_kec.merkle_levels(d_tree, layers),
+                        K_kec.merkle_levels_plain(d_tree, layers))
+        print("keccak plan branches, mismatches: "
+              + json.dumps(report.get("keccak_branches")))
     except Exception as e:
         failures.append(f"Keccak kernel checks: {type(e).__name__}: {e}")
 

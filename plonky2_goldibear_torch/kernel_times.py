@@ -1,10 +1,20 @@
 """Device times of one tree's kernels at the shapes of a prove, to hold
 two trees' kernels against each other on one card: the NTT, the
 Poseidon-GL leaf sponge and Merkle levels (Goldilocks), the NTT, the
-Poseidon2 permutation, leaf sponge and Merkle levels (BabyBear).
+Poseidon2 permutation, leaf sponge and Merkle levels (BabyBear), and the
+Keccak rows, Merkle levels and hash-onion (the Keccak config).
 
     python plonky2_goldibear_torch/kernel_times.py --root DIR \\
         --report chip_smoke_out/chip_smoke_report.json [--out FILE]
+    python plonky2_goldibear_torch/kernel_times.py --root DIR --keccak \
+        [--graphs]
+
+``--keccak`` times the Keccak kernels alone, at the shapes of one Keccak
+outer build and prove (KECCAK_SHAPES, no report needed), each with its
+launches a call, and the eleven Keccak calls of one Keccak outer prove
+back to back (``keccak_prove``): any tree whose ``ops.keccak`` has
+``hash_rows(rows, out_bytes)``, ``merkle_levels(d0, num_layers)`` and
+``permute(states)`` with their plain versions and a ``launches`` dict.
 
 It imports ``plonky2_goldibear_torch`` from DIR, a checkout of any tree
 whose port has ``ops.ntt.fft(x, zero_prefix_log)``,
@@ -19,8 +29,10 @@ BabyBear NTT's single rows), and EXTRA: both NTTs at one row of 2^25 and
 the Poseidon2 permutation at 2^17 states.  For each shape it prints the ms
 per call
 (CUDA events over 10 calls after a warm-up, median of 5 trials; the
-wrapper's host time included, as in ``chip_smoke.py``) and whether the
-output equals the tree's plain version.  One JSON line; card only.
+wrapper's host time included, as in ``chip_smoke.py``; with ``--graphs``
+device time instead: the 10 calls captured as one CUDA graph and
+replayed) and whether the output equals the tree's plain version.  One
+JSON line; card only.
 """
 
 from __future__ import annotations
@@ -36,6 +48,30 @@ KINDS = ("ntt", "leaf_sponge", "merkle_levels", "ntt_bb", "p2_permute",
          "p2_leaf_sponge", "p2_merkle_levels")
 EXTRA = (("ntt", 1, 1 << 25, 0), ("ntt_bb", 1, 1 << 25, 0),
          ("p2_permute", 1 << 17))
+# a Keccak outer's kernel calls (chip_smoke.py phase 9): the prove's leaves
+# (2^15 rows of 1080, 160, 128 bytes), the build's (680), the FRI layers'
+# (2^11, 2^7 of 256), its trees to a cap of 16 and the grind's hash-onion
+KECCAK_SHAPES = (("keccak_rows", 1 << 15, 1080), ("keccak_rows", 1 << 15, 680),
+                 ("keccak_rows", 1 << 15, 160), ("keccak_rows", 1 << 15, 128),
+                 ("keccak_rows", 1 << 11, 256), ("keccak_rows", 1 << 7, 256),
+                 ("keccak_merkle_levels", 1 << 15, 11),
+                 ("keccak_merkle_levels", 1 << 11, 7),
+                 ("keccak_merkle_levels", 1 << 7, 3),
+                 ("keccak_permute", 1 << 17))
+# the Keccak calls of one Keccak outer prove, in its order (chip_smoke.py
+# report, ``keccak_calls``): leaves and tree of each of its three
+# commitments, the FRI layers', then the grind
+KECCAK_PROVE = (("keccak_rows", 1 << 15, 1080), ("keccak_merkle_levels",
+                                                  1 << 15, 11),
+                ("keccak_rows", 1 << 15, 160), ("keccak_merkle_levels",
+                                                 1 << 15, 11),
+                ("keccak_rows", 1 << 15, 128), ("keccak_merkle_levels",
+                                                 1 << 15, 11),
+                ("keccak_rows", 1 << 11, 256), ("keccak_merkle_levels",
+                                                 1 << 11, 7),
+                ("keccak_rows", 1 << 7, 256), ("keccak_merkle_levels",
+                                               1 << 7, 3),
+                ("keccak_permute", 1 << 17))
 CALLS_PER_TRIAL = 10
 TRIALS = 5
 P = 0xFFFFFFFF00000001          # the Goldilocks prime
@@ -53,8 +89,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
                     help="the tree whose plonky2_goldibear_torch is timed")
-    ap.add_argument("--report", required=True,
+    ap.add_argument("--report", default=None,
                     help="a chip_smoke.py report holding the shapes")
+    ap.add_argument("--keccak", action="store_true",
+                    help="the Keccak kernels alone, at KECCAK_SHAPES")
+    ap.add_argument("--graphs", action="store_true",
+                    help="device time: the calls replayed as a CUDA graph")
     ap.add_argument("--out", default=None, help="also write the line here")
     args = ap.parse_args(argv)
 
@@ -70,10 +110,16 @@ def main(argv=None) -> int:
     from plonky2_goldibear_torch.ops import ntt as NG
     from plonky2_goldibear_torch.ops import ntt_bb as NB
     from plonky2_goldibear_torch.ops import poseidon2_bb as K2
+    from plonky2_goldibear_torch.ops import keccak as KK
     from plonky2_goldibear_torch.ops import poseidon_gl as K
 
-    with open(args.report) as f:
-        shapes = shapes_of(json.load(f))
+    if args.keccak:
+        shapes = list(KECCAK_SHAPES) + [("keccak_prove",)]
+    elif args.report:
+        with open(args.report) as f:
+            shapes = shapes_of(json.load(f))
+    else:
+        ap.error("give --report, or --keccak")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(7)
 
@@ -88,21 +134,53 @@ def main(argv=None) -> int:
     def ms(fn):
         fn()
         torch.cuda.synchronize(dev)
+        if args.graphs:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(CALLS_PER_TRIAL):
+                    fn()
+            fn = graph.replay
         trials = []
         for _ in range(TRIALS):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(CALLS_PER_TRIAL):
+            for _ in range(1 if args.graphs else CALLS_PER_TRIAL):
                 fn()
             end.record()
             torch.cuda.synchronize(dev)
             trials.append(start.elapsed_time(end) / CALLS_PER_TRIAL)
         return statistics.median(trials)
 
+    def rand_bytes(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape,
+                                             dtype=np.uint8)).to(dev)
+
+    def keccak_call(kind, *shape):
+        """(fn, its output equals the plain version's) of one Keccak call"""
+        if kind == "keccak_rows":
+            x = rand_bytes(*shape)
+            fn = lambda: KK.hash_rows(x)                    # noqa: E731
+            return fn, torch.equal(fn(), KK.hash_rows_plain(x))
+        if kind == "keccak_merkle_levels":
+            n, layers = shape
+            x = rand_bytes(n, 25)
+            fn = lambda: KK.merkle_levels(x, layers)        # noqa: E731
+            return fn, all(torch.equal(a, b) for a, b in zip(
+                fn(), KK.merkle_levels_plain(x, layers)))
+        x = rand(shape[0], 12)
+        fn = lambda: KK.permute(x)                          # noqa: E731
+        return fn, torch.equal(fn(), KK.permute_plain(x))
+
     times = []
     for kind, *shape in shapes:
-        if kind in ("leaf_sponge", "p2_leaf_sponge"):
+        if kind == "keccak_prove":
+            fns, eqs = zip(*(keccak_call(*c) for c in KECCAK_PROVE))
+            fn = lambda: [f() for f in fns]                 # noqa: E731
+            equal = all(eqs)
+        elif kind.startswith("keccak"):
+            fn, equal = keccak_call(kind, *shape)
+        elif kind in ("leaf_sponge", "p2_leaf_sponge"):
             n, length, num_out = shape
             M = K if kind == "leaf_sponge" else K2
             x = rand(n, length) if M is K else rand_bb(n, length)
@@ -127,11 +205,17 @@ def main(argv=None) -> int:
             fn = lambda: M.merkle_levels(x, layers)         # noqa: E731
             equal = all(torch.equal(a, b) for a, b in zip(
                 fn(), M.merkle_levels_plain(x, layers)))
-        times.append({"call": [kind, *shape], "ms": ms(fn), "equal": equal})
+        before = sum(KK.launches.values())
+        fn()
+        launched = sum(KK.launches.values()) - before
+        times.append({"call": [kind, *shape], "ms": ms(fn), "equal": equal,
+                      **({"launches": launched} if kind.startswith("keccak")
+                         else {})})
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    line = json.dumps({"root": root, "card": card, "times": times})
+    line = json.dumps({"root": root, "card": card, "graphs": args.graphs,
+                       "times": times})
     print(line)
     if args.out:
         with open(args.out, "w") as f:

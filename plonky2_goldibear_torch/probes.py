@@ -55,7 +55,10 @@ choose between, as CUDA-graph replays (device time without the wrappers'
 host time): every group size per Merkle level width, the tail per depth
 and the leaf sponge per shape of a prove (Poseidon-GL, Poseidon2-BB; the
 Poseidon2-BB sponge also without its row loads), and every cluster size
-of each field's NTT at each NTT shape of its prove.
+of each field's NTT at each NTT shape of its prove.  ``keccak_groups``
+(card only, as they do) times the Keccak rows and one Merkle level at
+each group size, the subtree launch at each depth, and the Keccak outer's
+trees at each depth of subtree tail.
 
 Runs on the card unless ``--device cpu`` is given (plain torch versions,
 host clock, cut sizes: a rehearsal, not a device measurement); without a
@@ -123,6 +126,13 @@ GL_NTT_SHAPES = ((135, 12, 0), (135, 15, 3), (20, 12, 0), (20, 15, 3),
 # quotient, the three FRI layers (leaves, leaf length)
 BB_SPONGES = ((1 << 15, 167), (1 << 15, 36), (1 << 15, 48), (1 << 12, 32),
               (1 << 9, 32), (1 << 6, 32))
+# the Keccak outer's rows (leaves, their bytes: the prove's 2^15 leaves,
+# the build's, the FRI layers), its Merkle levels' widths (2^14 ... 2^4
+# parents) and its trees (leaves, layers to a cap of 16)
+KECCAK_ROWS = ((1 << 15, 1080), (1 << 15, 680), (1 << 15, 160),
+               (1 << 15, 128), (1 << 11, 256), (1 << 7, 256))
+KECCAK_LEVELS = range(14, 3, -1)
+KECCAK_TREES = ((1 << 15, 11), (1 << 11, 7), (1 << 7, 3))
 MIN_LAUNCH_S = 2e-3        # r doubles until one launch takes this long
 MAX_REPS = 1 << 24
 TRIALS = 5
@@ -336,6 +346,57 @@ def run_poseidon2_groups(dev: torch.device) -> Dict:
     return rec
 
 
+def run_keccak_groups(dev: torch.device) -> Dict:
+    """Section ``keccak_groups`` (card only): device ms per launch of the
+    Keccak kernels at each group size (threads a state): rows at each
+    shape of KECCAK_ROWS, one Merkle level of 2^k parents for each k of
+    KECCAK_LEVELS, a subtree launch of each depth for caps of 16 and 1,
+    and each tree of KECCAK_TREES with each depth of subtree tail (0: a
+    launch a level), the planned one marked.  The data the plans of
+    ops/keccak.py are chosen from (device time only: the tail's gain is
+    the launches' host time, which ``kernel_times.py`` includes)."""
+    from .ops import keccak as K
+
+    _needs_card(dev, "keccak_groups")
+    gen = torch.Generator().manual_seed(0)
+    rand = lambda *shape: torch.randint(               # noqa: E731
+        0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ms = lambda fn: _graph_ms(fn, dev)                  # noqa: E731
+    rec = {"section": "keccak_groups", "device": dev.type,
+           "card": card_name(dev), "rows": {}, "levels": {}, "subtree": {},
+           "trees": {}}
+    for n, length in KECCAK_ROWS:
+        rows = rand(n, length)
+        rec["rows"][f"{n}x{length}"] = {
+            g: ms(lambda: K._rows(rows, K.DIGEST, g, K.block_for(
+                K.threads_for(n, g), sms))) for g in K.GROUPS}
+        rec["rows"][f"{n}x{length}"]["plan"] = K.launch_plan(n, sms)
+    for k in KECCAK_LEVELS:
+        parents = 1 << k
+        d = rand(2 * parents, K.DIGEST)
+        rec["levels"][parents] = {
+            g: ms(lambda: K._levels(d, [("level", parents, g, K.block_for(
+                K.threads_for(parents, g), sms))])) for g in K.GROUPS}
+    for cap in (16, 1):
+        rec["subtree"][cap] = {}
+        for layers in range(1, K.TAIL_LAYERS + 1):
+            d = rand(cap << layers, K.DIGEST)
+            rec["subtree"][cap][layers] = ms(lambda: K._levels(
+                d, [("subtree", cap << layers, layers)]))
+    for n, layers in KECCAK_TREES:
+        d = rand(n, K.DIGEST)
+        rec["trees"][f"{n}x{layers}"] = {
+            "plan": K.merkle_plan(n, layers, sms), "tails": {}}
+        for t in range(min(layers, K.TAIL_LAYERS) + 1):
+            plan = [("level", n >> j, *K.launch_plan(n >> j, sms))
+                    for j in range(1, layers - t + 1)]
+            plan += [("subtree", n >> (layers - t), t)] if t else []
+            rec["trees"][f"{n}x{layers}"]["tails"][t] = ms(
+                lambda: K._levels(d, plan))
+    return rec
+
+
 def _ntt_clusters(dev: torch.device, section: str, F, shapes) -> Dict:
     """Device ms of the NTT of field module F at each (batch, log2 n, zero
     prefix) of ``shapes`` for every cluster size the row allows, and the
@@ -509,14 +570,30 @@ def _library_of(path: str) -> str:
 
 def keccak_rounds(code: List) -> Dict:
     """One thread's instructions a Keccak-f in a Keccak kernel, from its
-    SASS: the round loop (24 trips) is the smallest loop of 100 or more
-    instructions."""
-    rounds = min((b for b in loops(code) if len(b) >= 100), key=len,
-                 default=None)
+    SASS: the round loop (24 trips) is the innermost loop that touches no
+    global memory with the most three-input logic ops (LOP3: theta's
+    parities and chi), not the block, store or byte-load loops."""
+    every = loops(code)
+    innermost = [b for b in every if not any(
+        o is not b and len(o) < len(b) and o[0][0] >= b[0][0]
+        and o[-1][0] <= b[-1][0] for o in every) and not any(
+            _opcode(i) in ("LDG", "STG") for _, i in b)]
+    rounds = max(innermost, default=None, key=lambda b: sum(
+        _opcode(i) == "LOP3" for _, i in b))
     if rounds is None:
         return None
     return {"round_loop": len(rounds), "per_keccak_f": 24 * len(rounds),
             "opcodes": _histogram(rounds)}
+
+
+def keccak_group_of(func: str) -> int:
+    """Threads a state of a Keccak kernel, from its mangled name (the rows
+    and level kernels' first template argument; the subtree kernel's is
+    25, the hash-onion's 1)."""
+    m = re.search(r"(?:rows|level)_kernel\w*?ILi(\d+)E", func)
+    if m:
+        return int(m.group(1))
+    return 25 if "subtree_kernel" in func else 1
 
 
 def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
@@ -554,8 +631,10 @@ def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
                     "per_step": len(body) / K.unroll(step),
                     "opcodes": _histogram(body)}
             elif name == "keccak":
+                rounds, g = keccak_rounds(code), keccak_group_of(func)
                 out.setdefault(name, {})[func] = {
-                    "instructions": len(code), "rounds": keccak_rounds(code)}
+                    "group": g, "instructions": len(code), "rounds": rounds,
+                    "per_state": rounds and g * rounds["per_keccak_f"]}
             else:
                 out.setdefault(name, {})[func] = {
                     "instructions": len(code),
@@ -569,6 +648,7 @@ def sass_counts(dump_dir: str = None, libs: List[str] = None) -> Dict:
 # the card-only sweeps of the kernels' launch geometry
 GEOMETRY = {"poseidon_groups": run_groups,
             "poseidon2_groups": run_poseidon2_groups,
+            "keccak_groups": run_keccak_groups,
             "ntt_bb_clusters": run_ntt_bb_clusters,
             "ntt_gl_clusters": run_ntt_gl_clusters}
 
@@ -580,6 +660,7 @@ def main(argv=None) -> int:
     ap.add_argument("sections", nargs="*",
                     help=f"of {list(SECTIONS) + list(MATMULS)} "
                          "sass poseidon_groups poseidon2_groups "
+                         "keccak_groups "
                          "ntt_bb_clusters ntt_gl_clusters "
                          "(default: every chain section)")
     ap.add_argument("--device", default=None,

@@ -321,3 +321,65 @@ def test_keccak_merkle_levels_kernel(cuda, n, layers):
 def test_keccak_permute_kernel(cuda, n):
     s = _rand(cuda, n, 12, seed=n)
     assert torch.equal(KK.permute(s), KK.permute_plain(s))
+
+
+# -- Keccak launch geometry: every group size, subtree depth and plan --------
+
+KECCAK_PROVE_LENGTHS = (128, 160, 256, 672, 680, 1080)
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.parametrize("length", KECCAK_PROVE_LENGTHS + (7, 135, 137))
+@pytest.mark.parametrize("group", KK.GROUPS)
+@pytest.mark.parametrize("n", [1, 129, 1 << 11])
+def test_keccak_rows_group_kernel(cuda, n, group, length):
+    rows = _bytes(cuda, n, length, seed=n + length)
+    ref = KK.hash_rows_plain(rows)
+    threads = KK.block_for(KK.threads_for(n, group), _sms(cuda))
+    assert torch.equal(KK._rows(rows, 25, group, threads), ref)
+    for threads in (32, KK.MAX_THREADS):
+        assert torch.equal(KK._rows(rows, 25, group, threads), ref)
+
+
+@pytest.mark.parametrize("length", KECCAK_PROVE_LENGTHS)
+@pytest.mark.parametrize("n", [1 << 7, 1 << 11, 1 << 15])
+def test_keccak_rows_prove_lengths(cuda, n, length):
+    rows = _bytes(cuda, n, length, seed=length)
+    assert torch.equal(KK.hash_rows(rows), KK.hash_rows_plain(rows))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("group", KK.GROUPS)
+@pytest.mark.parametrize("parents", [1, 13, 1 << 14])
+def test_keccak_level_group_kernel(cuda, parents, group, offset):
+    raw = _bytes(cuda, 2 * parents * 25 + offset, seed=parents + offset)
+    d0 = raw[offset:].view(2 * parents, 25)
+    ref = KK.merkle_levels_plain(d0, 1)[0]
+    plan = (("level", parents, group,
+             KK.block_for(KK.threads_for(parents, group), _sms(cuda))),)
+    assert torch.equal(KK._levels(d0, plan)[0], ref)
+
+
+@pytest.mark.parametrize("subtrees", [1, 16, 300])
+@pytest.mark.parametrize("layers", range(1, KK.TAIL_LAYERS + 1))
+def test_keccak_subtree_kernel(cuda, layers, subtrees):
+    width = subtrees << layers
+    d0 = _bytes(cuda, width, 25, seed=width)
+    ref = KK.merkle_levels_plain(d0, layers)
+    got = KK._levels(d0, (("subtree", width, layers),))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("cap", [1, 16])
+@pytest.mark.parametrize("bits", range(1, 18))
+def test_keccak_merkle_plan_trees(cuda, bits, cap):
+    n = 1 << bits
+    layers = max(bits - (cap.bit_length() - 1), 0)
+    d0 = _bytes(cuda, n, 25, seed=bits)
+    got = KK.merkle_levels(d0, layers)
+    ref = KK.merkle_levels_plain(d0, layers)
+    assert len(got) == len(ref) == layers
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
