@@ -183,6 +183,31 @@
    step); a tampered copy of each proof is rejected; then every kernel at
    each new shape.
 
+11. the device-transcript prover (``plonk/prover_async.py``, which a prove
+   without ``timings`` takes over Poseidon-GL and Poseidon2-BB; the timed
+   proves above take the sync prover), after phase 10 and before phase 5:
+   - on each cell of ``TRANSCRIPT_CELLS`` (the GL and BB 2^12 chains, the
+     GL and BB recursive outers, A and B), from rngs of one seed: the
+     device-transcript proof equals the sync one (and, for the chains,
+     the JAX proof); the host's blocking waits on the card in one prove
+     of each path (``torch.cuda.set_sync_debug_mode("warn")``: 1 for the
+     device path, 2 with lookups, or the phase fails); ``TRANSCRIPT_REPS``
+     warm proves of each path, in turns (prove_s, each hand kernel's
+     launches); one more prove of each path profiled (its launches,
+     device ms and busy share); each device proof goes to phase 5;
+   - ``transcript_flush`` against its plain version at every transcript
+     step of the GL and BB chains' device proves, at their real inputs,
+     with its data-sheet bound (the step's permutations' products at the
+     card's rate) and the latency of its chain of dependent permutations:
+     at the kernel's group (the slope of the Merkle tails' CUDA-graph times
+     over their layers, ``_group_latency_ms``) and its floor from one-warp
+     probe chains (``_latency_floor_ms``);
+   - ``pow_grind`` against its plain version at the chains' real grind
+     inputs, at their PoW bits and at 8, 16 and 20, with the candidates the
+     answer needs (up to the witness, to the end of its chunk), those it
+     tried, and its bounds: the needed candidates' permutations at the
+     data sheet's rate and at phase 3's permute probe bound a state.
+
 The witness replay, in phases 4 and 6-10: every circuit the script
 witnesses is witnessed twice through ``CircuitData.circuit``
 (``_witness_twice``): first by the fixpoint, which records the circuit's
@@ -285,6 +310,10 @@ GL_PERM_SBOXES = 8 * 12 + 22                  # S-boxes per permutation
 # BB: the full rounds' S-boxes, then per partial round lane 0's S-box, the
 # scaled sum and difference, and each other lane times its scaled diagonal
 BB_PERM_MULS = 8 * 16 * 4 + 13 * (4 + 2 + 15)
+# the dependent 32-bit multiplies of a BabyBear x^7 (csrc/poseidon2_bb.cuh
+# sbox): x^2, then x^3, then x^7, each a product, m = lo PINV and (m p) hi
+BB_SBOX_DEPTH_MULS = 3 * 3
+LATENCY_THREADS = 32          # one warp: a chain's latency, not its rate
 # probe step -> (the operations of one rep its bound counts, their per-SM-
 # clock rate, one PyTorch call computing the same chain from x0 and reps, or
 # None).  A GL multiply counts its four 32-bit products, as the data-sheet
@@ -350,6 +379,15 @@ SOURCES = {
 }
 KECCAK_COUNTERS = ("keccak_rows", "keccak_merkle_levels",
                    "keccak_merkle_subtree", "keccak_permute")
+# phase 11: the device-transcript prover's cells, label -> (a circuit with
+# its witness on the card, a maker of equal fresh rngs, the JAX proof's
+# arrays or None), filled by phases 4, 6, 7 and 8; its kernels' launch
+# counters (held against their plain versions in phase 11 alone); the warm
+# proves timed of each path; the PoW bits the grind is also held at
+TRANSCRIPT_CELLS = {}
+TRANSCRIPT_COUNTERS = ("transcript_flush", "pow_grind")
+TRANSCRIPT_REPS = 3
+GRIND_POW_BITS = (8, 16, 20)
 
 
 # a launch counter -> its kernel
@@ -781,6 +819,8 @@ def phase_zk_lookups(report, failures, calls, made) -> None:
     circuit, _, witgen_s = _witness_twice(
         outer, pw, lambda: np.random.default_rng(2), "zk regression outer",
         failures)
+    TRANSCRIPT_CELLS["A_zk_2e14"] = (
+        circuit, lambda: np.random.default_rng(5), None)
     print(f"zk regression outer: gadgets {gadgets_s:.4f} s, build "
           f"{build_s:.4f} s, witgen {witgen_s:.4f} s")
     ops.calls = []
@@ -824,6 +864,8 @@ def phase_zk_lookups(report, failures, calls, made) -> None:
     pw.set_targets(ins, circuits.u16_inputs())
     circuit, _, witgen_s = _witness_twice(
         u16, pw, lambda: np.random.default_rng(3), "u16 table", failures)
+    TRANSCRIPT_CELLS["B_u16_2e12"] = (
+        circuit, lambda: np.random.default_rng(6), None)
     print(f"u16 table: gadgets {gadgets_s:.4f} s, build {build_s:.4f} s, "
           f"witgen {witgen_s:.4f} s")
     host_wires = gl.to_ints(circuit.wires)
@@ -992,6 +1034,8 @@ def phase_bb_recursion(inner, inner_proof, report, failures, calls,
     rv.set_verifier_data_target(pw, vk_t, inner.verifier_only)
     circuit, _, witgen_s = _witness_twice(outer, pw, NonRandomRng,
                                           "BB recursive outer", failures)
+    TRANSCRIPT_CELLS[f"bb_recursive_2e{outer.common.degree_bits}"] = (
+        circuit, NonRandomRng, None)
     ok["public_inputs"] = circuit.public_inputs == \
         list(inner_proof.public_inputs)
     label = f"BB recursive 2^{outer.common.degree_bits}"
@@ -1427,6 +1471,309 @@ def phase_cyclic(inner, inner_proof, report, failures, calls, made) -> None:
                                    degree_bits=outer.common.degree_bits)
 
 
+def _blocking_waits(fn):
+    """(fn's result, the number of host waits on the card during fn, their
+    places): ``torch.cuda.set_sync_debug_mode("warn")`` warns at each
+    synchronising call (a copy to the host, a nonzero, a blocking copy to
+    the card)."""
+    import collections
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message))
+    return out, sum(where.values()), dict(where.most_common(8))
+
+
+def _group_latency_ms(dev):
+    """Device ms of one permutation held by the transcript kernel's group
+    (GL: 12 threads, BB: 16), from the probe runner's CUDA-graph timing of
+    the Merkle tails (``probes poseidon_groups`` / ``poseidon2_groups``):
+    a tail folds its levels one permutation after another, so the slope
+    over its layers is a permutation's latency at that group."""
+    import numpy as np
+
+    from plonky2_goldibear_torch import probes as runner
+    from plonky2_goldibear_torch.field import bb, gl
+    from plonky2_goldibear_torch.ops import poseidon2_bb as P2
+    from plonky2_goldibear_torch.ops import poseidon_gl as P
+
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, F, K, kind, top, group, width in (
+            ("goldilocks", gl, P, "tail", P.TAIL_MAX_LAYERS, 16, 4),
+            ("babybear", bb, P2, "subtree", P2.SUBTREE_MAX_LAYERS,
+             P2.SUBTREE_GROUP, 8)):
+        t = {}
+        for layers in (1, top):
+            d = F.from_ints(rng.integers(0, F.P, size=(16 << layers, width),
+                                         dtype=np.uint64), dev)
+            step = (kind, 16 << layers, layers, 16, group << (layers - 1))
+            t[layers] = runner._graph_ms(lambda: K._levels(d, [step]), dev)
+        out[name] = (t[top] - t[1]) / (top - 1)
+    return out
+
+
+def _latency_floor_ms(dev):
+    """A floor under one permutation's latency, from the probe chains run
+    by one warp (``LATENCY_THREADS``: the time a rep is the latency of one
+    dependent operation): each round's S-box waits on the round before, and
+    the linear layers and constants are left out.  GL: the rounds times the
+    larger of a ``gl_sbox`` and three dependent ``gl_mul``; BB: the rounds
+    times ``BB_SBOX_DEPTH_MULS`` dependent ``u32_mul``.  Returns ({field:
+    ms a permutation}, {probe step: ns an operation})."""
+    from plonky2_goldibear_torch import probes as runner
+    from plonky2_goldibear_torch.ops import poseidon2_bb as P2
+    from plonky2_goldibear_torch.ops import poseidon_gl as P
+    from plonky2_goldibear_torch.ops import probes as K_probe
+
+    ns = {}
+    for step in ("gl_mul", "gl_sbox", "u32_mul"):
+        x = runner.make_input(step, LATENCY_THREADS, dev)
+        m = runner.marginal(lambda r: K_probe.chain(x, step, r),
+                            K_probe.unroll(step), dev)
+        ns[step] = m["s_per_rep"] * 1e9
+    gl_sbox = max(ns["gl_sbox"], 3 * ns["gl_mul"])
+    bb_rounds = P2.N_FULL + P2.N_PARTIAL
+    return ({"goldilocks": P.N_ROUNDS * gl_sbox * 1e-6,
+             "babybear": bb_rounds * BB_SBOX_DEPTH_MULS * ns["u32_mul"]
+             * 1e-6}, ns)
+
+
+def phase_transcript(report, failures, made, probe_lines):
+    """Phase 11 (see the module docstring): the device-transcript prover
+    against the sync one on every cell of TRANSCRIPT_CELLS, and its two
+    kernels against their plain versions at the real inputs of the chains'
+    proves.  ``probe_lines``: phase 3's permute checks (their bounds a
+    state).  Returns the kernels line's entries of the two kernels."""
+    import numpy as np
+    import torch
+
+    from plonky2_goldibear_torch import ops
+    from plonky2_goldibear_torch.field import bb, gl
+    from plonky2_goldibear_torch.ops import transcript as T
+    from plonky2_goldibear_torch.plonk import prover
+    from plonky2_goldibear_torch.plonk.proof import (PROOF_PHASES,
+                                                     flatten_proof)
+
+    dev = torch.device("cuda", 0)
+    rec = report.setdefault("transcript", {})
+    latency = _group_latency_ms(dev)
+    floor, chain_ns = _latency_floor_ms(dev)
+    rec["permutation_latency_ms"] = latency
+    rec["permutation_latency_floor_ms"] = floor
+    rec["one_warp_chain_ns"] = chain_ns
+    print("permutation latency at the transcript's group (ms): "
+          + json.dumps(latency) + "; its floor from one-warp probe chains "
+          "(ms): " + json.dumps(floor) + " (ns an operation: "
+          + json.dumps(chain_ns) + ")")
+
+    # -- each cell: both paths, same rng -----------------------------------
+    steps = {}
+    for label, (circuit, make_rng, jax_arrays) in TRANSCRIPT_CELLS.items():
+        field = circuit.common.spec.name
+
+        def prove(path):
+            return prover.prove(circuit, device="cuda", rng=make_rng(),
+                                timings={} if path == "sync" else None)
+
+        times = {"sync": [], "device": []}
+        proofs, launches = {}, {}
+        for rep in range(TRANSCRIPT_REPS):
+            for path in ("sync", "device")[::1 - 2 * (rep % 2)]:
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                proofs[path] = prove(path)
+                torch.cuda.synchronize()
+                times[path].append(time.perf_counter() - t0)
+                launches[path] = {k: v for k, v in
+                                  ops.launch_counts().items() if v}
+        # the host's waits in one more (warm) prove of each path; the
+        # device one keeps, on a chain, the inputs of every transcript step
+        # and of the grind
+        seen = []
+        real_flush, real_grind = T.transcript_flush, T.pow_grind
+
+        def flush_spy(state, out_buf, pieces, n_out, n):
+            seen.append(("flush", state.clone(), out_buf.clone(),
+                         [p.clone() for p in pieces], n_out, n))
+            return real_flush(state, out_buf, pieces, n_out, n)
+
+        def grind_spy(state, leftover, k):
+            seen.append(("grind", state.clone(), None if leftover is None
+                         else leftover.clone(), k))
+            return real_grind(state, leftover, k)
+
+        if field not in steps and label.endswith("chain_2e12"):
+            T.transcript_flush, T.pow_grind = flush_spy, grind_spy
+            steps[field] = seen
+        waits, places = {}, {}
+        try:
+            _, waits["device"], places["device"] = _blocking_waits(
+                lambda: prove("device"))
+        finally:
+            T.transcript_flush, T.pow_grind = real_flush, real_grind
+        _, waits["sync"], places["sync"] = _blocking_waits(
+            lambda: prove("sync"))
+        profiles = {path: _profile(lambda: prove(path),
+                                   statistics.median(times[path]) * 1e3)
+                    for path in ("sync", "device")}
+        flat = {k: flatten_proof(v) for k, v in proofs.items()}
+        equal = {k: bool(np.array_equal(flat["device"][k], flat["sync"][k]))
+                 for k in PROOF_PHASES}
+        line = {
+            "degree_bits": circuit.common.degree_bits,
+            "device_equals_sync": all(equal.values()),
+            "prove_s": {k: statistics.median(v) for k, v in times.items()},
+            "prove_s_all": times, "launches": launches,
+            "blocking_waits": waits, "wait_places": places,
+            "kernel_launches": {k: sum(x["launches"] for x in p["kernels"])
+                                for k, p in profiles.items()},
+            "device_ms": {k: p["device_ms"] for k, p in profiles.items()},
+            "busy_share": {k: p["device_busy_share"]
+                           for k, p in profiles.items()}}
+        if jax_arrays is not None:
+            line["device_equals_jax"] = all(
+                bool(np.array_equal(flat["device"][k],
+                                    jax_arrays["proof_" + k]))
+                for k in PROOF_PHASES)
+        rec[label] = line
+        print(f"device transcript {label}: " + json.dumps(line))
+        if not line["device_equals_sync"]:
+            failures.append(f"{label}: the device-transcript proof differs "
+                            "from the sync one in " + ", ".join(
+                                k for k, v in equal.items() if not v))
+        if line.get("device_equals_jax") is False:
+            failures.append(f"{label}: the device-transcript proof differs "
+                            "from the JAX proof")
+        allowed = 2 if circuit.common.num_lookup_polys else 1
+        if waits["device"] != allowed:
+            failures.append(f"{label}: {waits['device']} blocking waits in a "
+                            f"device-transcript prove, not {allowed}: "
+                            + json.dumps(places["device"]))
+        for k in TRANSCRIPT_COUNTERS:
+            if launches["device"].get(k, 0) <= 0:
+                failures.append(f"kernel {k} was not launched by the {label} "
+                                "device-transcript prove")
+        made.append((f"{label}_device_transcript", proofs["device"],
+                     circuit.verifier_data(), circuit.common))
+
+    # -- the two kernels at the chains' real inputs -------------------------
+    per_state = {"goldilocks": probe_lines["goldilocks"],
+                 "babybear": probe_lines["babybear"]}
+    flush_lines, grind_lines = [], []
+    for field, seen in steps.items():
+        F = gl if field == "goldilocks" else bb
+        spec = F.SPEC
+        perm_muls = GL_PERM_MULS if F is gl else BB_PERM_MULS
+        for i, (kind, state, *rest) in enumerate(seen):
+            if kind == "flush":
+                out_buf, pieces, n_out, n = rest
+                kern = lambda: T.transcript_flush(state, out_buf, pieces,
+                                                  n_out, n)     # noqa: E731
+                plain = lambda: T.transcript_flush_plain(
+                    state, out_buf, pieces, n_out, n)           # noqa: E731
+                total = sum(p.shape[0] for p in pieces)
+                perms, _ = T.flush_schedule(total, n_out, n)
+                ref, plain_ms = _timed(plain, 1, warm_up=False)
+                mism, err = _compare(kern(), ref)
+                ms = _cuda_ms(kern, 20)
+                # the data-sheet bound (the permutations' products at the
+                # card's rate), and the latency the dependent chain takes:
+                # at the kernel's group, and its floor
+                line = dict(field=field, step=i, total=total, n_out=n_out,
+                            n=n, permutations=perms, mismatches=mism,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=perms * perm_muls * MULS_PER_FIELD_MUL
+                            / report["int32_mul_per_s"] * 1e3,
+                            bound_by="operations",
+                            latency_bound_ms=perms * latency[field],
+                            latency_floor_ms=perms * floor[field])
+                flush_lines.append(line)
+                print("check transcript_flush " + json.dumps(line))
+                continue
+            leftover, k_real = rest
+            pow_real = spec.bits - k_real
+            for pow_bits in sorted({pow_real, *GRIND_POW_BITS}):
+                k = spec.bits - pow_bits
+                out, scratch = T.pow_grind(state, leftover, k)
+                ref, plain_ms = _timed(
+                    lambda: T.pow_grind_plain(state, leftover, k), 1,
+                    warm_up=False)
+                mism, err = _compare(out, ref)
+                # the bounds count the candidates the answer needs: every
+                # one up to the witness, to the end of its chunk (all 2^32
+                # when none passes); the kernel tried ``tried``
+                w, found = (int(v) for v in F.to_ints(out))
+                needed = -(-(w + 1) // T.GRIND_CHUNK) * T.GRIND_CHUNK \
+                    if found else 1 << 32
+                tried = int(scratch[3]) * T.GRIND_CHUNK
+                ms = _cuda_ms(lambda: T.pow_grind(state, leftover, k), 5)
+                b_ms = needed * perm_muls * MULS_PER_FIELD_MUL / \
+                    report["int32_mul_per_s"] * 1e3
+                line = dict(field=field, pow_bits=pow_bits, real=pow_bits
+                            == pow_real, witness=w, found=found,
+                            needed=needed, tried=tried, mismatches=mism,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by="operations",
+                            probe_bound_ms=needed * per_state[field])
+                grind_lines.append(line)
+                print("check pow_grind " + json.dumps(line))
+    rec["flush_checks"], rec["grind_checks"] = flush_lines, grind_lines
+    for what, lines in (("transcript_flush", flush_lines),
+                        ("pow_grind", grind_lines)):
+        if not lines:
+            failures.append(f"{what}: no check at a prove's inputs")
+        failures.extend(f"{what} {json.dumps(x)}: mismatches" for x in lines
+                        if x["mismatches"])
+
+    # the kernels line: the GL 2^12 chain's device prove, its steps summed
+    gl_launches = rec.get("gl_chain_2e12", {}).get("launches", {}).get(
+        "device", {})
+    gl_flush = [x for x in flush_lines if x["field"] == "goldilocks"]
+    gl_grind = [x for x in grind_lines if x["field"] == "goldilocks"
+                and x["real"]] or grind_lines
+    entries = [{
+        "name": "transcript_flush", "route": "cuda",
+        "source": "plonky2_goldibear_torch/csrc/transcript.cu",
+        "replaces": "plonky2_goldibear_tpu/hash/device_challenger.py:37",
+        "launches": gl_launches.get("transcript_flush", 0),
+        "max_abs_err": max((x["max_abs_err"] for x in flush_lines),
+                           default=float("inf")),
+        "ms": sum(x["ms"] for x in gl_flush),
+        "plain_ms": sum(x["plain_ms"] for x in gl_flush),
+        "bound_ms": sum(x["bound_ms"] for x in gl_flush),
+        "bound_by": "operations", "library_ms": None,
+        "latency_bound_ms": sum(x["latency_bound_ms"] for x in gl_flush),
+        "latency_floor_ms": sum(x["latency_floor_ms"] for x in gl_flush)}, {
+        "name": "pow_grind", "route": "cuda",
+        "source": "plonky2_goldibear_torch/csrc/transcript.cu",
+        "replaces": "plonky2_goldibear_tpu/fri/prover.py:520",
+        "launches": gl_launches.get("pow_grind", 0),
+        "max_abs_err": max((x["max_abs_err"] for x in grind_lines),
+                           default=float("inf")),
+        "ms": gl_grind[0]["ms"] if gl_grind else None,
+        "plain_ms": gl_grind[0]["plain_ms"] if gl_grind else None,
+        "bound_ms": gl_grind[0]["bound_ms"] if gl_grind else None,
+        "bound_by": "operations", "library_ms": None,
+        "needed": gl_grind[0]["needed"] if gl_grind else None,
+        "tried": gl_grind[0]["tried"] if gl_grind else None}]
+    print("transcript kernels, the GL 2^12 chain's device prove: "
+          + json.dumps(entries))
+    return entries
+
+
 def phase_verify(made, failures) -> dict:
     """Verify each (label, proof, verifier data, common data) of ``made``
     and the reference's 2^14 proof, and reject a copy of each with one
@@ -1526,6 +1873,7 @@ def phase_recursion(inner, inner_proof, report, failures, calls,
             outer, pw, NonRandomRng, f"GL recursive outer (build {rep})",
             failures)
         rec["witgen_s"].append(witgen_s)
+    TRANSCRIPT_CELLS["gl_recursive_2e12"] = (circuit, NonRandomRng, None)
 
     def blob(part):
         with open(os.path.join(ROOT, OUTER_BIN.format(part)), "rb") as f:
@@ -2007,7 +2355,7 @@ def main() -> int:
         print("build calls: " + json.dumps(build_calls))
         shapes = {tuple(c) for calls in (*prove_calls.values(),
                                          *build_calls.values())
-                  for c in calls}
+                  for c in calls if c[0] not in TRANSCRIPT_COUNTERS}
         shapes |= {("merkle_levels", n, layers) for n, layers in EXTRA_TREES}
         shapes |= set(EXTRA_BB_CALLS)
         for call in sorted(shapes):
@@ -2279,6 +2627,9 @@ def main() -> int:
             # 3 timed proves of the finished circuit
             data, pw, circuit, arrays = built(field, MAIN_BITS,
                                               reps=BUILD_REPS)
+            TRANSCRIPT_CELLS[{"goldilocks": "gl", "babybear": "bb"}[field]
+                             + "_chain_2e12"] = (circuit, NonRandomRng,
+                                                 arrays)
             for k in build_kernels[field]:
                 if report[f"{field}_build_2e{MAIN_BITS}"]["launches"].get(
                         k, 0) <= 0:
@@ -2355,7 +2706,8 @@ def main() -> int:
         print(f"{label} calls: " + json.dumps(
             {k: sorted(set(map(tuple, v))) for k, v in new_calls.items()}))
         for call in sorted({tuple(c) for calls in new_calls.values()
-                            for c in calls} - checked):
+                            for c in calls
+                            if c[0] not in TRANSCRIPT_COUNTERS} - checked):
             prove_shape_check(call)
             key = _shape_key(call)
             report["checks"][key]["call"] = list(call)
@@ -2443,6 +2795,21 @@ def main() -> int:
         failures.append(f"cyclic recursion shape checks: {type(e).__name__}: "
                         f"{e}")
 
+    # -- phase 11: the device-transcript prover ------------------------------
+    phase_start("11")
+    transcript_kernels = []
+    try:
+        per_state = {
+            f: report["checks"][key].get(
+                "probe_bound_ms", report["checks"][key]["bound_ms"])
+            / (1 << 17)
+            for f, key in (("goldilocks", "permute_2^17"),
+                           ("babybear", "p2_permute_2^17"))}
+        transcript_kernels = phase_transcript(report, failures, made,
+                                              per_state)
+    except Exception as e:
+        failures.append(f"device-transcript phase: {type(e).__name__}: {e}")
+
     # -- phase 5: the verifier, on the host ----------------------------------
     phase_start("5")
     try:
@@ -2511,6 +2878,7 @@ def main() -> int:
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    kernels += transcript_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,7 @@ asks for the CPU, and never a quiet fall back to the CPU."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +19,15 @@ def resolve(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def upload(array: np.ndarray, device) -> torch.Tensor:
+    """A fresh host array as a tensor on ``device``.  To the card it goes
+    from pinned memory without blocking the host: the copy runs in stream
+    order, and the pinned buffer is kept until it has run.  On the CPU the
+    tensor shares the array's memory."""
+    t = torch.from_numpy(array)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t

@@ -27,6 +27,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from ..device import upload
 from . import host
 
 SPEC = host.BABYBEAR
@@ -47,10 +48,11 @@ def _mont(v: int) -> int:
 
 def from_ints(vals: Union[Sequence[int], np.ndarray], device="cpu"
               ) -> torch.Tensor:
-    """Host ints (canonical or not) -> Montgomery-form tensor on ``device``."""
+    """Host ints (canonical or not) -> Montgomery-form tensor on ``device``
+    (to the card without blocking the host, ``device.upload``)."""
     a = np.asarray(vals, dtype=np.uint64) % np.uint64(P)
     mont = (a * np.uint64(R)) % np.uint64(P)
-    return torch.from_numpy(mont.astype(np.int32)).to(device)
+    return upload(mont.astype(np.int32), device)
 
 
 def to_ints(x: torch.Tensor) -> np.ndarray:
@@ -79,6 +81,24 @@ def from_canonical(x: torch.Tensor) -> torch.Tensor:
 def to_canonical(x: torch.Tensor) -> torch.Tensor:
     """Montgomery form -> canonical values as an int64 tensor."""
     return x.to(torch.int64) * RINV % P
+
+
+def from_u32(w: torch.Tensor) -> torch.Tensor:
+    """Integer tensor of values in [0, 2^32) -> Montgomery forms (the JAX
+    package's ``field/bb.py:from_u32``)."""
+    return from_canonical(w)
+
+
+def flag(b: torch.Tensor) -> torch.Tensor:
+    """A bool tensor as the field elements 1 and 0."""
+    return from_u32(b.to(torch.int64))
+
+
+def index_low_bits(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The canonical value mod n (a power of two <= 2^31) as int64
+    indices (JAX ``index_low_bits``)."""
+    assert n & (n - 1) == 0 and n <= 1 << 31
+    return to_canonical(x) & (n - 1)
 
 
 # --------------------------------------------------------------------------

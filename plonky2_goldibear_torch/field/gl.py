@@ -6,9 +6,10 @@ canonical value (< p).  torch has no usable ``uint64`` arithmetic on the CPU
 
 - an unsigned compare flips the sign bit of both sides first (``_ult``);
 - a right shift is arithmetic in int64, so every shift is masked;
-- every limb product of ``mul`` is exact: a 32x32-bit product is built from
-  two 32x16-bit partial products (< 2^48), so no signed product overflows.
-  Adds and subtracts wrap mod 2^64, which is the u64 arithmetic they mirror.
+- adds, subtracts and multiplies wrap mod 2^64, which is the u64
+  arithmetic they mirror: ``mul`` takes the four 32x32-bit limb products
+  (each below 2^64, so its int64 product holds all its bits) and sums them
+  into the 128-bit product's two words.
 
 Semantics match ``field/host.py`` python-int arithmetic and the JAX
 package's ``field/gl.py`` bit for bit.  The same code runs on CPU and CUDA
@@ -22,6 +23,7 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from ..device import upload
 from . import host
 
 SPEC = host.GOLDILOCKS
@@ -47,9 +49,28 @@ def to_signed(v: int) -> int:
 
 def from_ints(vals: Union[Sequence[int], np.ndarray], device="cpu"
               ) -> torch.Tensor:
-    """Host ints (canonical, < p) -> field tensor on ``device``."""
+    """Host ints (canonical, < p) -> field tensor on ``device`` (to the
+    card without blocking the host, ``device.upload``)."""
     a = np.ascontiguousarray(np.asarray(vals, dtype=np.uint64))
-    return torch.from_numpy(a.view(np.int64).copy()).to(device)
+    return upload(a.view(np.int64).copy(), device)
+
+
+def from_u32(w: torch.Tensor) -> torch.Tensor:
+    """Integer tensor of values in [0, 2^32) -> field elements: the values
+    themselves, canonical (the JAX package's ``field/gl.py:from_u32``)."""
+    return w.to(DTYPE)
+
+
+def flag(b: torch.Tensor) -> torch.Tensor:
+    """A bool tensor as the field elements 1 and 0."""
+    return from_u32(b.to(torch.int64))
+
+
+def index_low_bits(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The canonical value mod n (a power of two <= 2^32) as int64
+    indices: the low bits of the bit pattern (JAX ``index_low_bits``)."""
+    assert n & (n - 1) == 0 and n <= 1 << 32
+    return x & (n - 1)
 
 
 def to_ints(x: torch.Tensor) -> np.ndarray:
@@ -89,18 +110,14 @@ def _canon(x):
     return x + _geq_p(x).to(DTYPE) * EPS
 
 
-def _mul32(x, y):
-    """Exact 32x32 -> 64 product of x, y < 2^32 as (hi, lo) 32-bit halves."""
-    t0 = x * (y & M16)               # < 2^48
-    t1 = x * (y >> 16)               # < 2^48
-    low = t0 + ((t1 & M16) << 16)    # < 2^49
-    return (t1 >> 16) + (low >> 32), low & M32
-
-
 def _reduce128(n0, n1, n2, n3):
     """(n3 2^96 + n2 2^64 + n1 2^32 + n0) mod p for 32-bit limbs, canonical.
     Uses 2^64 = 2^32 - 1 and 2^96 = -1 (mod p)."""
-    x = n0 | (n1 << 32)
+    return _reduce(n0 | (n1 << 32), n2, n3)
+
+
+def _reduce(x, n2, n3):
+    """(n3 2^96 + n2 2^64 + x) mod p for a u64 x and 32-bit n2, n3."""
     t0 = x - n3
     t0 = t0 - _ult(x, n3).to(DTYPE) * EPS       # borrow: add p back
     t1 = (n2 << 32) - n2                        # n2 (2^32 - 1) < 2^64
@@ -121,7 +138,8 @@ def _split(x):
 def _as_field(x, like: torch.Tensor):
     if isinstance(x, torch.Tensor):
         return x
-    return torch.tensor(to_signed(int(x)), dtype=DTYPE, device=like.device)
+    # a fill on the device: no host copy to wait for
+    return torch.full((), to_signed(int(x)), dtype=DTYPE, device=like.device)
 
 
 def add(a, b):
@@ -142,14 +160,12 @@ def neg(a):
 def mul(a, b):
     a0, a1 = _split(a)
     b0, b1 = _split(b)
-    ll_hi, ll_lo = _mul32(a0, b0)
-    lh_hi, lh_lo = _mul32(a0, b1)
-    hl_hi, hl_lo = _mul32(a1, b0)
-    hh_hi, hh_lo = _mul32(a1, b1)
-    c1 = ll_hi + lh_lo + hl_lo                  # < 3 * 2^32
-    c2 = lh_hi + hl_hi + hh_lo + (c1 >> 32)
-    c3 = hh_hi + (c2 >> 32)
-    return _reduce128(ll_lo, c1 & M32, c2 & M32, c3)
+    # the limb products' u64 bit patterns (int64 products wrap mod 2^64)
+    ll, lh, hl, hh = a0 * b0, a0 * b1, a1 * b0, a1 * b1
+    mid = ((ll >> 32) & M32) + (lh & M32) + (hl & M32)     # < 3 * 2^32
+    lo = (ll & M32) | (mid << 32)
+    hi = hh + ((lh >> 32) & M32) + ((hl >> 32) & M32) + (mid >> 32)
+    return _reduce(lo, hi & M32, (hi >> 32) & M32)
 
 
 def mul_const(a, c: int):

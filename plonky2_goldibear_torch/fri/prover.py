@@ -1,14 +1,19 @@
-"""FRI opening prover, sync transcript (reference plonky2/src/fri/oracle.rs:
-185-248, fri/prover.rs:22-255; the JAX package's ``fri/prover.py``).
+"""FRI opening prover (reference plonky2/src/fri/oracle.rs:185-248,
+fri/prover.rs:22-255; the JAX package's ``fri/prover.py``), with the
+transcript on the host (``prove_openings``) or on the device
+(``prove_openings_device``, the device-transcript prover's).
 
 The combined codeword is built in values form on the whole LDE coset (one
-batched pass per opening batch), one extension iFFT recovers its
-coefficients, and each fold round is a beta-weighted coefficient reduction,
-a coset FFT and a Merkle commit.  The proof-of-work grind searches
-candidates in ascending batches and returns the smallest valid witness.
-Query rounds gather leaf rows and sibling chains from every tree.  Every
-function takes the field module ``F`` and the hasher of the circuit
-(Goldilocks and Poseidon-GL by default); the extension is ``ext_ops(F)``.
+batched pass per opening batch) from alpha and the claimed openings as
+device scalars, one extension iFFT recovers its coefficients, and each
+fold round is a coefficient reduction by the powers of a device beta, a
+coset FFT and a Merkle commit.  The sync proof-of-work grind searches
+candidates in ascending batches and returns the smallest valid witness;
+the device one is one kernel (``ops/transcript.py:pow_grind``) that finds
+the same witness.  Query rounds gather leaf rows and sibling chains from
+every tree.  Every function takes the field module ``F`` and the hasher of
+the circuit (Goldilocks and Poseidon-GL by default); the extension is
+``ext_ops(F)``.
 """
 
 from __future__ import annotations
@@ -22,11 +27,9 @@ from ..field import ext as ext_mod
 from ..field import fft as fftm
 from ..field import gl, host
 from ..hash import merkle, poseidon_gl
+from ..ops import transcript as T
 from ..plonk.proof import (FriInitialTreeProof, FriProof, FriQueryRound,
                            FriQueryStep)
-
-GRIND_BATCH_CUDA = 1 << 17
-GRIND_BATCH_CPU = 1 << 12
 
 
 def _sync_time(timings, name, t0, device):
@@ -38,21 +41,41 @@ def _sync_time(timings, name, t0, device):
 
 def reduce_openings(spec: host.FieldSpec, values: Sequence[Tuple[int, ...]],
                     alpha: Tuple[int, ...]) -> Tuple[int, ...]:
-    """sum_i alpha^i v_i on the host."""
+    """sum_i alpha^i v_i on the host (the verifier's)."""
     acc = host.ext_zero(spec)
     for v in reversed(list(values)):
         acc = host.ext_add(spec, host.ext_mul(spec, acc, alpha), v)
     return acc
 
 
-def _ext_scalar(value, device, F=gl):
+def ext_scalar(value, device, F=gl):
+    """A host extension element as a tuple of D device scalars."""
     arr = F.from_ints([int(v) for v in value], device)
     return tuple(arr.unbind(0))
 
 
-def combine_and_ifft(instance, oracles, alpha, shift: int, F=gl):
+def ext_powers(E, z, n: int):
+    """[1, z, ..., z^(n-1)] as an ext (n,) array from a device ext scalar,
+    by log-doubling (the JAX package's ``_ext_powers_scalar``)."""
+    dev = z[0].device
+    pows = E.ones((1,), dev)
+    z_pow = z
+    length = 1
+    while length < n:
+        shifted = E.mul(pows, z_pow)
+        pows = tuple(torch.cat([a, b]) for a, b in zip(pows, shifted))
+        z_pow = E.mul(z_pow, z_pow)
+        length *= 2
+    return tuple(c[:n] for c in pows)
+
+
+def combine_and_ifft(batches, oracles, alpha, shift: int, F=gl):
     """The combined codeword sum_b alpha^(...) (sum_j alpha^j f_j - y_b) /
-    (x - z_b) on the LDE coset, and its coefficients."""
+    (x - z_b) on the LDE coset, and its coefficients.  ``batches``: per
+    opening batch (its polynomials as (oracle, index) pairs, its claimed
+    values as D device tensors (P_b,), its point as a device ext scalar);
+    ``alpha`` a device ext scalar.  The reduced openings sum_j alpha^j v_j
+    are taken on the device (JAX ``_combine_and_ifft_async``)."""
     spec = F.SPEC
     E = ext_mod.ext_ops(F)
     ldes = [o.lde for o in oracles]
@@ -61,39 +84,43 @@ def combine_and_ifft(instance, oracles, alpha, shift: int, F=gl):
     w = spec.two_adic_generator(host.log2_strict(m))
     xs_ext = E.from_base(F.mul_const(fftm.powers(w, m, dev, F), shift))
     sum_vals = None
-    for batch in instance.batches:
-        polys = batch.polynomials
-        rows = torch.stack([ldes[p.oracle_index][p.polynomial_index]
-                            for p in polys])                 # (P_b, m)
-        weights = [host.ext_pow(spec, alpha, j) for j in range(len(polys))]
-        reduced = tuple(
-            F.batch_sum(F.mul(rows, F.from_ints(
-                [wt[d] for wt in weights], dev)[:, None]), axis=0)
-            for d in range(E.D))
-        red_open = _ext_scalar(reduce_openings(spec, batch.values, alpha),
-                               dev, F)
+    for polys, vals, point in batches:
+        rows = torch.stack([ldes[o][i] for o, i in polys])   # (P_b, m)
+        alpha_pows = ext_powers(E, alpha, len(polys))
+        reduced = tuple(F.batch_sum(F.mul(rows, a[:, None]), axis=0)
+                        for a in alpha_pows)
+        red_open = tuple(F.batch_sum(c, axis=-1)
+                         for c in E.mul(alpha_pows, vals))
         numerator = E.sub(reduced, red_open)
-        denominator = E.sub(xs_ext, _ext_scalar(batch.point, dev, F))
-        quotient = E.mul(numerator, E.inv(denominator))
+        quotient = E.mul(numerator, E.inv(E.sub(xs_ext, point)))
         if sum_vals is None:
             sum_vals = quotient
         else:
-            shift_pow = _ext_scalar(host.ext_pow(spec, alpha, len(polys)),
-                                    dev, F)
+            shift_pow = E.mul(tuple(a[-1] for a in alpha_pows), alpha)
             sum_vals = E.add(E.mul(sum_vals, shift_pow), quotient)
     return sum_vals, fftm.ext_coset_ifft(sum_vals, shift, F)
 
 
-def fold_round(coeffs, arity: int, beta_pows, shift: int, F=gl):
-    """coeffs (m,) ext -> folded (m / arity,) ext and its values on the
+def batch_polys(instance):
+    """Each FRI batch's polynomials as (oracle, index) pairs."""
+    return [[(p.oracle_index, p.polynomial_index) for p in b.polynomials]
+            for b in instance.batches]
+
+
+def fold_round(coeffs, arity: int, beta, shift: int, F=gl):
+    """coeffs (m,) ext -> folded (m / arity,) ext, sum_r beta^r c_r with
+    the powers of the device ext scalar ``beta``, and its values on the
     shift coset (reference fri/prover.rs:115-125)."""
     E = ext_mod.ext_ops(F)
     m = coeffs[0].shape[-1]
     chunked = tuple(c.reshape(m // arity, arity) for c in coeffs)
-    folded = None
-    for r in range(arity):
-        term = E.mul(tuple(c[:, r] for c in chunked), beta_pows[r])
-        folded = term if folded is None else E.add(folded, term)
+    folded = tuple(c[:, 0] for c in chunked)
+    beta_pow = beta
+    for r in range(1, arity):
+        folded = E.add(folded, E.mul(tuple(c[:, r] for c in chunked),
+                                     beta_pow))
+        if r + 1 < arity:
+            beta_pow = E.mul(beta_pow, beta)
     return folded, fftm.ext_coset_fft(folded, shift, F)
 
 
@@ -118,32 +145,45 @@ def _min_leading_zeros(config, spec: host.FieldSpec) -> int:
     return config.proof_of_work_bits + (64 - spec.bits)
 
 
+def grind_bits(config, spec: host.FieldSpec) -> int:
+    """k: a response passes when its canonical value is below 2^k."""
+    return 64 - _min_leading_zeros(config, spec)
+
+
 def fri_proof_of_work(challenger, config, device, F=gl,
                       hasher=poseidon_gl) -> int:
     """The smallest w with leading_zeros(H(transcript || w)) >= the bound of
     ``_min_leading_zeros`` (for BabyBear: canonical response < 2^15):
     candidates are tried in ascending batches through the hasher's batched
     permutation (the kernel on the card), and the first hit of the first
-    batch with one is the answer."""
-    state = list(challenger.sponge_state)
-    pos = len(challenger.input_buffer)
-    for i, v in enumerate(challenger.input_buffer):
-        state[i] = v
-    assert pos < hasher.WIDTH
-    k = 64 - _min_leading_zeros(config, F.SPEC)
-    batch = GRIND_BATCH_CUDA if device.type == "cuda" else GRIND_BATCH_CPU
-    base = F.from_ints(state, device)
-    start = 0
-    while True:
-        cands = start + torch.arange(batch, dtype=torch.int64, device=device)
-        st = F.grind_set_lane(base.expand(batch, -1), pos, cands)
-        resp = hasher.permute(st)[:, hasher.RATE - 1]
-        ok = F.grind_response_ok(resp, k)
-        hits = torch.nonzero(ok)
-        if hits.numel():
-            return start + int(hits[0, 0])
-        start += batch
-        assert start < 1 << 32, "PoW grind exhausted 2^32 candidates"
+    batch with one is the answer (``ops/transcript.py:pow_grind_plain``)."""
+    buf = challenger.input_buffer
+    assert len(buf) < hasher.RATE
+    w, found = F.to_ints(T.pow_grind_plain(
+        F.from_ints(challenger.sponge_state, device),
+        F.from_ints(buf, device) if buf else None,
+        grind_bits(config, F.SPEC), permute=hasher.permute))
+    assert found, "PoW grind exhausted 2^32 candidates"
+    return int(w)
+
+
+def query_rounds_from(init, steps_data, E) -> List[FriQueryRound]:
+    """The query rounds from host data: per initial tree and per fold
+    tree, (leaf rows, sibling chains), one entry a query."""
+    rounds = []
+    for q in range(len(init[0][0])):
+        steps = []
+        for leaves, proofs in steps_data:
+            leaf = leaves[q]
+            evals = [tuple(leaf[j * E.D + d] for d in range(E.D))
+                     for j in range(len(leaf) // E.D)]
+            steps.append(FriQueryStep(evals=evals, merkle_proof=proofs[q]))
+        rounds.append(FriQueryRound(
+            initial_trees_proof=FriInitialTreeProof(
+                evals_proofs=[(leaves[q], proofs[q])
+                              for leaves, proofs in init]),
+            steps=steps))
+    return rounds
 
 
 def _query_rounds(initial_trees, trees, x_indices: List[int],
@@ -157,20 +197,7 @@ def _query_rounds(initial_trees, trees, x_indices: List[int],
             for t in initial_trees]
     steps_data = [(t.leaf_batch(ix), t.prove_batch(ix))
                   for t, ix in zip(trees, round_indices)]
-    rounds = []
-    for q in range(len(x_indices)):
-        steps = []
-        for leaves, proofs in steps_data:
-            leaf = leaves[q]
-            evals = [tuple(leaf[j * E.D + d] for d in range(E.D))
-                     for j in range(len(leaf) // E.D)]
-            steps.append(FriQueryStep(evals=evals, merkle_proof=proofs[q]))
-        rounds.append(FriQueryRound(
-            initial_trees_proof=FriInitialTreeProof(
-                evals_proofs=[(leaves[q], proofs[q])
-                              for leaves, proofs in init]),
-            steps=steps))
-    return rounds
+    return query_rounds_from(init, steps_data, E)
 
 
 def fri_proof(initial_trees, lde_coeffs, lde_values, challenger,
@@ -191,11 +218,9 @@ def fri_proof(initial_trees, lde_coeffs, lde_values, challenger,
         tree = round_commit(values, arity, cap_height, hasher)
         challenger.observe_cap(tree.cap_host())
         trees.append(tree)
-        beta = challenger.get_extension_challenge()
-        beta_pows = [_ext_scalar(host.ext_pow(spec, beta, r), dev, F)
-                     for r in range(arity)]
+        beta = ext_scalar(challenger.get_extension_challenge(), dev, F)
         shift = pow(shift, arity, spec.p)
-        coeffs, values = fold_round(coeffs, arity, beta_pows, shift, F)
+        coeffs, values = fold_round(coeffs, arity, beta, shift, F)
     keep = coeffs[0].shape[-1] >> fri_params.config.rate_bits
     final = E.to_ints(tuple(c[:keep] for c in coeffs))
     final_poly = [tuple(int(final[d][i]) for d in range(E.D))
@@ -228,12 +253,72 @@ def fri_proof(initial_trees, lde_coeffs, lde_values, challenger,
 def prove_openings(instance, oracles, challenger, fri_params,
                    timings: Optional[Dict[str, float]] = None, F=gl,
                    hasher=poseidon_gl) -> FriProof:
-    """reference fri/oracle.rs:185-248."""
-    alpha = challenger.get_extension_challenge()
+    """reference fri/oracle.rs:185-248; the batches' values and points are
+    host ints on ``instance``."""
     dev = oracles[0].lde.device
+    alpha = ext_scalar(challenger.get_extension_challenge(), dev, F)
+    batches = [(polys, tuple(F.from_ints(list(c), dev)
+                             for c in zip(*b.values)),
+                ext_scalar(b.point, dev, F))
+               for polys, b in zip(batch_polys(instance), instance.batches)]
     t0 = time.perf_counter()
-    values, coeffs = combine_and_ifft(instance, oracles, alpha,
+    values, coeffs = combine_and_ifft(batches, oracles, alpha,
                                       F.SPEC.coset_shift, F)
     _sync_time(timings, "fri_combine", t0, dev)
     return fri_proof(oracles, coeffs, values, challenger, fri_params,
                      timings, F, hasher)
+
+
+# -- the device transcript (the JAX package's ``fri_proof_async``) ---------
+
+
+def fri_proof_device(lde_coeffs, lde_values, dc, fri_params, F=gl,
+                     hasher=poseidon_gl):
+    """The commit phase and the grind with the transcript on the device
+    (``hash/device_challenger.py``; reference fri/prover.rs:22-77): each
+    round's cap observed on the device, beta left there, the grind one
+    kernel.  Returns the device handles of the proof's final gather:
+    (fold trees, final polynomial as D tensors, PoW witness as a field
+    scalar, pow_ok flag (1,), query challenges (num_query_rounds,))."""
+    spec = F.SPEC
+    E = ext_mod.ext_ops(F)
+    cap_height = fri_params.config.cap_height
+    trees: List[merkle.MerkleTree] = []
+    coeffs, values = lde_coeffs, lde_values
+    shift = spec.coset_shift
+    for arity_bits in fri_params.reduction_arity_bits:
+        arity = 1 << arity_bits
+        tree = round_commit(values, arity, cap_height, hasher)
+        dc.observe_cap(tree.cap)
+        trees.append(tree)
+        beta = dc.get_extension_challenge(E.D)
+        shift = pow(shift, arity, spec.p)
+        coeffs, values = fold_round(coeffs, arity, beta, shift, F)
+    keep = coeffs[0].shape[-1] >> fri_params.config.rate_bits
+    final = tuple(c[:keep] for c in coeffs)
+    dc.observe_ext_flat(final)
+
+    k = grind_bits(fri_params.config, spec)
+    state, leftover, _ = dc.grind_inputs()
+    found, _ = T.pow_grind(state, leftover, k)
+    dc.observe_array(found[:1])
+    response = dc.get_challenge_scalar()
+    pow_ok = F.grind_response_ok(response[None], k) & (found[1:] != 0)
+    query_challenges = dc.get_n_challenges(
+        fri_params.config.num_query_rounds)
+    return trees, final, found[0], pow_ok, query_challenges
+
+
+def prove_openings_device(batch_polys: Sequence, oracles, dc, fri_params,
+                          batch_vals: Sequence, points: Sequence, F=gl,
+                          hasher=poseidon_gl):
+    """``prove_openings`` with the transcript on the device (JAX
+    ``prove_openings_async``): ``batch_polys`` each batch's (oracle,
+    index) pairs, ``batch_vals`` its claimed values (D device tensors),
+    ``points`` device ext scalars.  Returns what ``fri_proof_device``
+    does."""
+    alpha = dc.get_extension_challenge(ext_mod.ext_ops(F).D)
+    values, coeffs = combine_and_ifft(
+        list(zip(batch_polys, batch_vals, points)), oracles, alpha,
+        F.SPEC.coset_shift, F)
+    return fri_proof_device(coeffs, values, dc, fri_params, F, hasher)

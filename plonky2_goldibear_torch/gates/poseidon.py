@@ -51,7 +51,7 @@ def _consts(device: str):
     fast_rc = list(C.FAST_PARTIAL_ROUND_CONSTANTS[:NP - 1]) + [0]
     return {
         "rc": rc,
-        "mds": torch.from_numpy(K._MDS).to(device),
+        "mds": K._tables(device)[1],              # for K._mds
         "first": f(C.FAST_PARTIAL_FIRST_ROUND_CONSTANT),
         "init": f(init),
         "fast_rc": f(fast_rc),

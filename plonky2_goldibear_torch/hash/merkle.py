@@ -57,6 +57,19 @@ class MerkleTree:
     def cap_host(self) -> list:
         return self._digests_host(self.cap)
 
+    def query_gather(self, idx: torch.Tensor):
+        """The leaf rows (q, leaf_len) and sibling chains (q, num_layers,
+        digest) of the leaves at the device indices ``idx`` (q,), gathered
+        on the device (one gather per level) and left there."""
+        rows = self.leaves[idx]
+        gathers = []
+        for lv in self.levels[:self.num_layers]:
+            gathers.append(lv[idx ^ 1])
+            idx = idx >> 1
+        sibs = torch.stack(gathers, dim=1) if gathers else \
+            self.cap.new_empty((rows.shape[0], 0, self.cap.shape[-1]))
+        return rows, sibs
+
     def prove_batch(self, leaf_indices: Sequence[int]) -> List[List]:
         """Sibling chains for many leaves, one gather per level and one
         transfer for all of them."""
@@ -64,11 +77,7 @@ class MerkleTree:
             return [[] for _ in leaf_indices]
         idx = torch.as_tensor(list(leaf_indices), dtype=torch.int64,
                               device=self.cap.device)
-        gathers = []
-        for lv in self.levels[:self.num_layers]:
-            gathers.append(lv[idx ^ 1])
-            idx = idx >> 1
-        flat = self._digests_host(torch.stack(gathers, dim=1))
+        flat = self._digests_host(self.query_gather(idx)[1])
         layers = self.num_layers
         return [flat[q * layers:(q + 1) * layers]
                 for q in range(len(leaf_indices))]

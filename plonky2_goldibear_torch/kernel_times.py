@@ -1,8 +1,9 @@
 """Device times of one tree's kernels at the shapes of a prove, to hold
 two trees' kernels against each other on one card: the NTT, the
 Poseidon-GL leaf sponge and Merkle levels (Goldilocks), the NTT, the
-Poseidon2 permutation, leaf sponge and Merkle levels (BabyBear), and the
-Keccak rows, Merkle levels and hash-onion (the Keccak config).
+Poseidon2 permutation, leaf sponge and Merkle levels (BabyBear), the
+device transcript's step and PoW grind (both fields), and the Keccak rows,
+Merkle levels and hash-onion (the Keccak config).
 
     python plonky2_goldibear_torch/kernel_times.py --root DIR \\
         --report chip_smoke_out/chip_smoke_report.json [--out FILE]
@@ -22,12 +23,15 @@ whose port has ``ops.ntt.fft(x, zero_prefix_log)``,
 ``merkle_levels(d0, num_layers)``, ``ops.ntt_bb.fft(x, zero_prefix_log)``
 and ``ops.poseidon2_bb.permute(states)``, ``hash_leaves(inputs,
 num_outputs)`` and ``merkle_levels(d0, num_layers)``, with their plain
-versions.  The shapes are those that ``chip_smoke.py`` checked these
-kernels at, read from its report: every call of one 2^12 prove of the
-kernel's field, and the extra shapes it checks (trees of other caps, the
-BabyBear NTT's single rows), and EXTRA: both NTTs at one row of 2^25 and
-the Poseidon2 permutation at 2^17 states.  For each shape it prints the ms
-per call
+versions, and ``ops.transcript``.  The shapes are those that
+``chip_smoke.py`` checked these kernels at, read from its report: every
+call of one 2^12 prove of the kernel's field, and the extra shapes it
+checks (trees of other caps, the BabyBear NTT's single rows), and EXTRA:
+both NTTs at one row of 2^25 and the Poseidon2 permutation at 2^17
+states; and the transcript steps and the grind of those proves (the
+report's ``prove_calls``: each step's absorbed length, the outputs left
+and the challenges; the grind's leftover length and bound), on random
+inputs.  For each shape it prints the ms per call
 (CUDA events over 10 calls after a warm-up, median of 5 trials; the
 wrapper's host time included, as in ``chip_smoke.py``; with ``--graphs``
 device time instead: the 10 calls captured as one CUDA graph and
@@ -72,6 +76,7 @@ KECCAK_PROVE = (("keccak_rows", 1 << 15, 1080), ("keccak_merkle_levels",
                 ("keccak_rows", 1 << 7, 256), ("keccak_merkle_levels",
                                                1 << 7, 3),
                 ("keccak_permute", 1 << 17))
+TRANSCRIPT_KINDS = ("transcript_flush", "pow_grind")
 CALLS_PER_TRIAL = 10
 TRIALS = 5
 P = 0xFFFFFFFF00000001          # the Goldilocks prime
@@ -83,6 +88,17 @@ def shapes_of(report: dict):
     report's prove-shape phase, in the order checked."""
     return [tuple(c["call"]) for c in report["checks"].values()
             if c.get("call") and c["call"][0] in KINDS] + list(EXTRA)
+
+
+def transcript_shapes(report: dict):
+    """The distinct transcript-kernel calls of the report's proves, as
+    (kind, width, *shape) in the order made."""
+    out = []
+    for calls in report.get("prove_calls", {}).values():
+        for c in calls:
+            if c[0] in TRANSCRIPT_KINDS and tuple(c) not in out:
+                out.append(tuple(c))
+    return out
 
 
 def main(argv=None) -> int:
@@ -112,12 +128,14 @@ def main(argv=None) -> int:
     from plonky2_goldibear_torch.ops import poseidon2_bb as K2
     from plonky2_goldibear_torch.ops import keccak as KK
     from plonky2_goldibear_torch.ops import poseidon_gl as K
+    from plonky2_goldibear_torch.ops import transcript as TR
 
     if args.keccak:
         shapes = list(KECCAK_SHAPES) + [("keccak_prove",)]
     elif args.report:
         with open(args.report) as f:
-            shapes = shapes_of(json.load(f))
+            report = json.load(f)
+        shapes = shapes_of(report) + transcript_shapes(report)
     else:
         ap.error("give --report, or --keccak")
     dev = torch.device("cuda", 0)
@@ -193,6 +211,20 @@ def main(argv=None) -> int:
             x[:, n >> r:] = 0
             fn = lambda: M.fft(x, r)                        # noqa: E731
             equal = torch.equal(fn(), M.fft_plain(x, r))
+        elif kind == "transcript_flush":
+            width, total, n_out, n = shape
+            make = rand if width == 12 else rand_bb
+            state, out_buf, piece = make(width), make(8), make(total)
+            fn = lambda: TR.transcript_flush(                # noqa: E731
+                state, out_buf, [piece], n_out, n)
+            equal = torch.equal(fn(), TR.transcript_flush_plain(
+                state, out_buf, [piece], n_out, n))
+        elif kind == "pow_grind":
+            width, L, k = shape
+            make = rand if width == 12 else rand_bb
+            state, left = make(width), make(L) if L else None
+            fn = lambda: TR.pow_grind(state, left, k)[0]     # noqa: E731
+            equal = torch.equal(fn(), TR.pow_grind_plain(state, left, k))
         elif kind == "p2_permute":
             (n,) = shape
             x = rand_bb(n, 16)

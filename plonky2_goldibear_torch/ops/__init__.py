@@ -2,8 +2,9 @@
 version: the NTT of either field (``ntt``, ``ntt_bb``), the Poseidon-GL
 permutation, leaf sponge and Merkle levels (``poseidon_gl``) and the
 Poseidon2-BabyBear ones (``poseidon2_bb``), Keccak-256 rows, Merkle
-levels and hash-onion (``keccak``), and the dependent-chain probes of one
-field or integer operation (``probes``)."""
+levels and hash-onion (``keccak``), the device transcript's step and PoW
+grind (``transcript``), and the dependent-chain probes of one field or
+integer operation (``probes``)."""
 
 from typing import Dict
 
@@ -18,9 +19,10 @@ def record(counter: str, *shape: int) -> None:
 
 
 def _modules():
-    from . import keccak, ntt, ntt_bb, poseidon2_bb, poseidon_gl, probes
+    from . import (keccak, ntt, ntt_bb, poseidon2_bb, poseidon_gl, probes,
+                   transcript)
 
-    return ntt, ntt_bb, poseidon_gl, poseidon2_bb, keccak, probes
+    return ntt, ntt_bb, poseidon_gl, poseidon2_bb, keccak, transcript, probes
 
 
 def reset_launches() -> None:
@@ -31,7 +33,8 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel since the last reset."""
-    ntt, ntt_bb, poseidon_gl, poseidon2_bb, keccak, probes = _modules()
+    ntt, ntt_bb, poseidon_gl, poseidon2_bb, keccak, transcript, probes = \
+        _modules()
     return {"ntt": ntt.launches, "ntt_bb": ntt_bb.launches,
             **poseidon_gl.launches, **poseidon2_bb.launches,
-            **keccak.launches, **probes.launches}
+            **keccak.launches, **transcript.launches, **probes.launches}

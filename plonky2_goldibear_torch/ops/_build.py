@@ -29,7 +29,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("ntt_gl", "poseidon_gl", "ntt_bb", "poseidon2_bb", "keccak",
-           "probes")
+           "transcript", "probes")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 HOST_CC = "cc"
 

@@ -75,6 +75,13 @@ def _tables(device: str):
 # --------------------------------------------------------------------------
 
 
+@lru_cache(maxsize=8)
+def _shifts(device: str) -> torch.Tensor:
+    """2^shift_(i-1) of lanes 1..15, on ``device`` once (no copy a call)."""
+    return torch.tensor([1 << k for k in C.INTERNAL_DIAG_SHIFTS],
+                        dtype=torch.int64, device=device)
+
+
 def sbox(x):
     x2 = bb.mul(x, x)
     return bb.mul(bb.mul(x2, x), bb.mul(x2, x2))
@@ -99,9 +106,8 @@ def internal_layer(st: torch.Tensor) -> torch.Tensor:
     permute_internal_mut, gates/poseidon2_babybear.rs:787-803)."""
     s = st.to(torch.int64) * C.INTERNAL_SCALE % bb.P
     part = s[1:].sum(0)
-    shifts = torch.tensor([1 << k for k in C.INTERNAL_DIAG_SHIFTS],
-                          dtype=torch.int64, device=st.device)
-    shifts = shifts.reshape((WIDTH - 1,) + (1,) * (st.dim() - 1))
+    shifts = _shifts(str(st.device)).reshape((WIDTH - 1,)
+                                             + (1,) * (st.dim() - 1))
     head = part - s[0] + bb.P
     tail = part + s[0] + s[1:] * shifts
     return (torch.cat([head[None], tail]) % bb.P).to(bb.DTYPE)
@@ -258,6 +264,14 @@ def diag_powers():
     return _mont_array(pows), _mont_array(sums)
 
 
+def constant_tables() -> Tuple[np.ndarray, ...]:
+    """The six uint32 tables ``poseidon2_bb_set_constants`` takes (the
+    round code's, ``csrc/poseidon2_bb.cuh``)."""
+    return (_mont_array(C.EXTERNAL_CONSTANTS),
+            _mont_array(C.INTERNAL_CONSTANTS),
+            _mont_array([C.INTERNAL_SCALE]), scaled_diag(), *diag_powers())
+
+
 def _lib(device):
     """The built library, its constants set on card ``device`` (a device
     or its index) and its C signatures set, once."""
@@ -268,13 +282,9 @@ def _lib(device):
     if index not in _CONSTANTS_SET:
         p32 = ctypes.POINTER(ctypes.c_uint32)
         lib.poseidon2_bb_set_constants.argtypes = [p32] * 6
-        tables = (_mont_array(C.EXTERNAL_CONSTANTS),
-                  _mont_array(C.INTERNAL_CONSTANTS),
-                  _mont_array([C.INTERNAL_SCALE]), scaled_diag(),
-                  *diag_powers())
         with torch.cuda.device(index):
             err = lib.poseidon2_bb_set_constants(
-                *(t.ctypes.data_as(p32) for t in tables))
+                *(t.ctypes.data_as(p32) for t in constant_tables()))
         _build.check(err, "poseidon2_bb_set_constants")
         vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.poseidon2_bb_permute.argtypes = [vp, vp, ll, vp]

@@ -57,7 +57,9 @@ def reset_launches() -> None:
 def _tables(device: str):
     rc = gl.from_ints(np.array(C.ALL_ROUND_CONSTANTS, dtype=np.uint64)
                       .reshape(N_ROUNDS, WIDTH), device)
-    return rc, torch.from_numpy(_MDS).to(device)
+    # the MDS transposed, as float64: its products with 32-bit limbs and
+    # their sums are integers below 2^41, exact in a float64 matrix product
+    return rc, torch.from_numpy(_MDS.T.astype(np.float64)).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -67,16 +69,17 @@ def _tables(device: str):
 
 def _sbox(x):
     x2 = gl.mul(x, x)
-    x3 = gl.mul(x2, x)
-    return gl.mul(x3, gl.mul(x2, x2))
+    x3, x4 = gl.mul(torch.stack([x2, x2]), torch.stack([x, x2]))  # one call
+    return gl.mul(x3, x4)
 
 
-def _mds(s, m):
-    """out[r] = sum_j M[r, j] s[j], as exact sums of 32-bit limbs."""
-    lo = (s & gl.M32).unsqueeze(-2)
-    hi = ((s >> 32) & gl.M32).unsqueeze(-2)
-    acc_lo = (lo * m).sum(-1)                 # < 264 * 2^32 < 2^41
-    h = (hi * m).sum(-1) + (acc_lo >> 32)
+def _mds(s, mt):
+    """out[r] = sum_j M[r, j] s[j], as exact sums of 32-bit limbs (one
+    float64 product by ``mt`` = M^T a limb: every sum < 2^41 < 2^53)."""
+    lo = (s & gl.M32).to(torch.float64)
+    hi = ((s >> 32) & gl.M32).to(torch.float64)
+    acc_lo = (lo @ mt).to(torch.int64)        # < 264 * 2^32 < 2^41
+    h = (hi @ mt).to(torch.int64) + (acc_lo >> 32)
     return gl._reduce128(acc_lo & gl.M32, h & gl.M32, h >> 32,
                          torch.zeros_like(h))
 

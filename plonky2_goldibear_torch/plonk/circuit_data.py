@@ -523,8 +523,13 @@ class CircuitData:
         ``NonRandomRng`` for the reference's deterministic draws, else a
         numpy generator, fresh from the OS when none is given), so the
         permutation-argument retry goes on from where witness generation
-        left it.  ``timings`` gets ``witness_generation`` (and its host
-        part, ``record_s`` or ``replay_s``) beside the prover's phases."""
+        left it.  Without ``timings`` a Poseidon-GL or Poseidon2-BB
+        circuit takes the device-transcript prover
+        (``plonk/prover_async.py``: one blocking fetch a proof); with
+        ``timings`` (a dict), or over Keccak, the sync prover, and
+        ``timings`` gets ``witness_generation`` (and its host part,
+        ``record_s`` or ``replay_s``) beside the prover's phases.  Both
+        provers give the same proof."""
         if rng is None:
             rng = np.random.default_rng()
         with prover.phase(timings, "witness_generation", self.device):

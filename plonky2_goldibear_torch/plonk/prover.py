@@ -1,14 +1,18 @@
-"""The PLONK prover, sync transcript (reference plonky2/src/plonk/prover.rs:
-136-926; the JAX package's ``plonk/prover.py:_internal_prove``).
+"""The PLONK prover (reference plonky2/src/plonk/prover.rs:136-926; the JAX
+package's ``plonk/prover.py``).
 
 Phases: wire commitment, partial products and Z (and a lookup circuit's
 lookup polynomials, ``lookup_polys``), their commitment, the quotient over
 the whole quotient domain, its commitment, the openings at zeta and
-g*zeta, then FRI.  Fiat-Shamir runs on the host between phases; every
-batched phase runs on the circuit's device.  A zero-knowledge circuit's
-wires, Z/partial-product and quotient commitments are salted from the
-prover's rng (``fri/oracle.py``), after witness generation's draws and
-before a retry's.  ``prove`` returns the
+g*zeta, then FRI.  Every batched phase runs on the circuit's device.
+``prove`` takes the device-transcript prover (``prover_async.py``: the
+transcript on the device too, one blocking fetch a proof) unless
+``timings`` are asked for or the hasher has no device permutation
+(Keccak); then the sync prover here runs Fiat-Shamir on the host between
+the phases (``_internal_prove_sync``).  Both give the same bytes.  A
+zero-knowledge circuit's wires, Z/partial-product and quotient
+commitments are salted from the prover's rng (``fri/oracle.py``), after
+witness generation's draws and before a retry's.  ``prove`` returns the
 proof and fills ``timings`` (seconds per phase, each ended by a device
 synchronise) when a dict is passed.  The field module ``F`` (``gl`` or
 ``bb``), its extension ``E``, the hasher of the commitments and the
@@ -63,7 +67,9 @@ def prove(circuit, device=None, timings: Optional[Dict[str, float]] = None,
     """Prove ``circuit`` (a ``circuit_data.Circuit``: its wires came either
     as data through ``load_circuit`` or from witness generation through
     ``CircuitData.circuit``) on ``device`` (the card unless the caller asks
-    for the CPU).  On a permutation-argument
+    for the CPU), through the device-transcript prover unless ``timings``
+    is a dict (then the sync one fills it: seconds per phase) or the
+    hasher is Keccak (``_internal_prove``).  On a permutation-argument
     division by zero the random wire of the public-input gate is drawn
     again, ``rand_field_element(p, rng)`` (``iop/generator.py``: a
     ``NonRandomRng`` for the reference's deterministic draws, else a numpy
@@ -259,12 +265,20 @@ def compute_lookup_polys(F, common, lookup_rows, wires: torch.Tensor,
     def cols(ws, rows):
         return wires[ws][:, rows].t()[None]
 
-    lut_inp = [LookupTableGate.wire_ith_looked_inp(s) for s in range(num_lut)]
-    lut_out = [LookupTableGate.wire_ith_looked_out(s) for s in range(num_lut)]
-    lut_mul = [LookupTableGate.wire_ith_multiplicity(s)
-               for s in range(num_lut)]
-    lu_inp = [LookupGate.wire_ith_looking_inp(s) for s in range(num_lu)]
-    lu_out = [LookupGate.wire_ith_looking_out(s) for s in range(num_lu)]
+    def wire_index(ws):
+        # a device index (a list index would be a blocking copy a call)
+        return devmod.upload(np.asarray(ws, dtype=np.int64), dev)
+
+    lut_inp = wire_index([LookupTableGate.wire_ith_looked_inp(s)
+                          for s in range(num_lut)])
+    lut_out = wire_index([LookupTableGate.wire_ith_looked_out(s)
+                          for s in range(num_lut)])
+    lut_mul = wire_index([LookupTableGate.wire_ith_multiplicity(s)
+                          for s in range(num_lut)])
+    lu_inp = wire_index([LookupGate.wire_ith_looking_inp(s)
+                         for s in range(num_lu)])
+    lu_out = wire_index([LookupGate.wire_ith_looking_out(s)
+                         for s in range(num_lu)])
     for last_lu, last_lut, first_lut in lookup_rows:
         rows_lut = torch.arange(first_lut, last_lut - 1, -1, device=dev)
         rows_lu = torch.arange(last_lut - 1, last_lu - 1, -1, device=dev)
@@ -302,10 +316,6 @@ def compute_lookup_polys(F, common, lookup_rows, wires: torch.Tensor,
 def _scalars(F, values: List[int], device) -> List[torch.Tensor]:
     arr = F.from_ints([int(v) % F.P for v in values], device)
     return list(arr.unbind(0)) if len(values) else []
-
-
-def _ext_scalar(F, value, device):
-    return tuple(_scalars(F, list(value), device))
 
 
 def partial_products(F, common, routed, s_id, sigmas, betas, gammas):
@@ -406,20 +416,6 @@ def quotient_chunks(circuit, qd: _QuotientData, cs_lde, wires_lde,
     return q_coeffs[:, :common.quotient_degree].reshape(-1, n)
 
 
-def _ext_powers(E, z, n: int):
-    """[1, z, ..., z^(n-1)] as an ext (n,) array (log-doubling)."""
-    dev = z[0].device
-    pows = E.ones((1,), dev)
-    z_pow = z
-    length = 1
-    while length < n:
-        shifted = E.mul(pows, z_pow)
-        pows = tuple(torch.cat([a, b]) for a, b in zip(pows, shifted))
-        z_pow = E.mul(z_pow, z_pow)
-        length *= 2
-    return tuple(c[:n] for c in pows)
-
-
 def eval_at(F, coeffs: torch.Tensor, pows) -> tuple:
     """Every poly of a coefficient batch (P, n) at the point whose powers
     are ``pows``: D arrays of (P,)."""
@@ -427,43 +423,86 @@ def eval_at(F, coeffs: torch.Tensor, pows) -> tuple:
                  for pw in pows)
 
 
+def opening_batches(F, E, common, zeta, zeta_next, oracles):
+    """The openings at the device ext scalars zeta and g * zeta in FRI
+    order (reference proof.rs:347-428), D device tensors a batch: every
+    polynomial at zeta (constants and sigmas, wires, Zs and partial
+    products, quotient, lookup polys), then the Zs and the lookup polys at
+    g * zeta."""
+    n = common.degree
+    nch = common.config.num_challenges
+    pp1 = common.partial_products_range()[1]
+    lk0 = common.num_zs_partial_products_polys()
+    pz = fri_prover.ext_powers(E, zeta, n)
+    cs, wires, zs_pp, quotient = oracles
+    at_z = [eval_at(F, o.coeffs, pz) for o in (cs, wires, zs_pp, quotient)]
+    cs_ev, wires_ev, zs_pp_ev, quot_ev = at_z
+    b0 = tuple(torch.cat([cs_ev[d], wires_ev[d], zs_pp_ev[d][:pp1],
+                          quot_ev[d], zs_pp_ev[d][lk0:]])
+               for d in range(E.D))
+    b1 = eval_at(F, torch.cat([zs_pp.coeffs[:nch], zs_pp.coeffs[lk0:]]),
+                 fri_prover.ext_powers(E, zeta_next, n))
+    return b0, b1
+
+
+def opening_set_from(common, b0: List[tuple], b1: List[tuple]) -> OpeningSet:
+    """The ``OpeningSet`` of the two FRI batches' host values."""
+    c0, c1 = common.constants_range()
+    s0, s1 = common.sigmas_range()
+    nch = common.config.num_challenges
+    o = [0]
+
+    def take(k):
+        o[0] += k
+        return b0[o[0] - k:o[0]]
+
+    pre = take(common.num_preprocessed_polys())
+    wires = take(common.config.num_wires)
+    zs_pp = take(common.partial_products_range()[1])
+    quotient = take(common.num_quotient_polys())
+    return OpeningSet(
+        constants=pre[c0:c1], plonk_sigmas=pre[s0:s1], wires=wires,
+        plonk_zs=zs_pp[:nch], plonk_zs_next=b1[:nch],
+        partial_products=zs_pp[nch:], quotient_polys=quotient,
+        lookup_zs=b0[o[0]:], lookup_zs_next=b1[nch:])
+
+
 def opening_set(F, E, common, zeta, oracles) -> OpeningSet:
-    """Openings at zeta and g * zeta (reference proof.rs:347-386)."""
+    """Openings at the host point zeta and at g * zeta (reference
+    proof.rs:347-386), read back."""
     spec = common.spec
     dev = oracles[0].coeffs.device
     g = spec.two_adic_generator(common.degree_bits)
     zeta_next = host.ext_scalar_mul(spec, zeta, g)
-    n = common.degree
-    pz = _ext_powers(E, _ext_scalar(F, zeta, dev), n)
-    pzn = _ext_powers(E, _ext_scalar(F, zeta_next, dev), n)
-    cs, wires, zs_pp, quotient = oracles
-    parts = [eval_at(F, cs.coeffs, pz), eval_at(F, wires.coeffs, pz),
-             eval_at(F, zs_pp.coeffs, pz), eval_at(F, zs_pp.coeffs, pzn),
-             eval_at(F, quotient.coeffs, pz)]
-    flat = F.to_ints(torch.cat([torch.stack(p, dim=1) for p in parts]))
-    vals = [tuple(int(v) for v in row) for row in flat]
-    sizes = [p[0].shape[0] for p in parts]
-    out, off = [], 0
-    for s in sizes:
-        out.append(vals[off:off + s])
-        off += s
-    cs_eval, wires_eval, zs_pp_eval, zs_pp_next_eval, quotient_eval = out
-    c0, c1 = common.constants_range()
-    s0, s1 = common.sigmas_range()
-    z0, z1 = common.zs_range()
-    pp0, pp1 = common.partial_products_range()
-    lk0 = common.num_zs_partial_products_polys()
-    return OpeningSet(
-        constants=cs_eval[c0:c1], plonk_sigmas=cs_eval[s0:s1],
-        wires=wires_eval, plonk_zs=zs_pp_eval[z0:z1],
-        plonk_zs_next=zs_pp_next_eval[z0:z1],
-        partial_products=zs_pp_eval[pp0:pp1],
-        quotient_polys=quotient_eval, lookup_zs=zs_pp_eval[lk0:],
-        lookup_zs_next=zs_pp_next_eval[lk0:])
+    b0, b1 = opening_batches(F, E, common,
+                             fri_prover.ext_scalar(zeta, dev, F),
+                             fri_prover.ext_scalar(zeta_next, dev, F),
+                             oracles)
+    flat = F.to_ints(torch.cat([torch.stack(b0, dim=1),
+                                torch.stack(b1, dim=1)]))
+    rows = [tuple(int(v) for v in row) for row in flat]
+    p0 = b0[0].shape[0]
+    return opening_set_from(common, rows[:p0], rows[p0:])
 
 
 def _internal_prove(circuit, wires_values, timings,
                     rng: Rng) -> ProofWithPublicInputs:
+    """One attempt at the proof, as the JAX package's ``prove`` picks it
+    (its ``plonk/prover.py:75-92``): the device-transcript prover
+    (``prover_async.py``, one blocking fetch) when no ``timings`` are
+    asked for and the hasher has a device permutation (Poseidon-GL,
+    Poseidon2-BB), else the sync prover, whose transcript runs on the host
+    between the phases (a byte-digest hasher such as Keccak, or a timed
+    prove)."""
+    from . import prover_async
+
+    if timings is None and prover_async.available(circuit.hasher):
+        return prover_async.internal_prove_async(circuit, wires_values, rng)
+    return _internal_prove_sync(circuit, wires_values, timings, rng)
+
+
+def _internal_prove_sync(circuit, wires_values, timings,
+                         rng: Rng) -> ProofWithPublicInputs:
     common = circuit.common
     config = common.config
     dev = circuit.device

@@ -21,6 +21,7 @@ from plonky2_goldibear_torch.ops import ntt, ntt_bb
 from plonky2_goldibear_torch.ops import probes as KP
 from plonky2_goldibear_torch.ops import poseidon2_bb as K2
 from plonky2_goldibear_torch.ops import poseidon_gl as K
+from plonky2_goldibear_torch.ops import transcript as T
 
 pytestmark = pytest.mark.gpu
 
@@ -383,3 +384,75 @@ def test_keccak_merkle_plan_trees(cuda, bits, cap):
     ref = KK.merkle_levels_plain(d0, layers)
     assert len(got) == len(ref) == layers
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+# -- the device transcript's kernels (csrc/transcript.cu) -------------------
+
+TRANSCRIPT = {"gl": (gl, 12), "bb": (bb, 16)}
+
+
+def _field_rand(F, device, n, seed):
+    rng = np.random.default_rng(seed)
+    return F.from_ints(rng.integers(0, F.P, size=n, dtype=np.uint64), device)
+
+
+# (pending lengths, outputs left, challenges): full chunks and a partial
+# one; a last observe that refills the outputs, squeezed from and past;
+# squeezes with nothing absorbed, within the buffer, past it and from an
+# empty one; a pure absorb with a leftover and with none; more pieces than
+# the pointer table holds; a long absorb
+FLUSH_CASES = [((3, 10), 0, 5), ((8,), 0, 2), ((16,), 0, 11), ((), 5, 3),
+               ((), 2, 7), ((), 0, 1), ((16, 3), 0, 0), ((24,), 0, 0),
+               ((1,) * 11, 0, 4), ((400, 3), 0, 4)]
+
+
+@pytest.mark.parametrize("case", FLUSH_CASES, ids=str)
+@pytest.mark.parametrize("field", list(TRANSCRIPT))
+def test_transcript_flush_kernel(cuda, field, case):
+    F, W = TRANSCRIPT[field]
+    lens, n_out, n = case
+    state = _field_rand(F, cuda, W, 1)
+    out_buf = _field_rand(F, cuda, T.RATE, 2)
+    pieces = [_field_rand(F, cuda, k, 3 + i) for i, k in enumerate(lens)]
+    before = T.launches["transcript_flush"]
+    got = T.transcript_flush(state, out_buf, pieces, n_out, n)
+    assert T.launches["transcript_flush"] == before + 1
+    assert torch.equal(got, T.transcript_flush_plain(state, out_buf, pieces,
+                                                     n_out, n))
+
+
+# (PoW bits, leftover L, where the witness lies): in the first chunk, in a
+# later block of the first wave of claims, past the first wave (a later
+# claim), or anywhere
+GRIND_CASES = [(2, 0, "first chunk"), (14, 7, "later block"),
+               (24, 3, "later claim"), (6, 3, None), (16, 1, None),
+               (20, 5, None)]
+
+
+@pytest.mark.parametrize("pow_bits,L,where", GRIND_CASES, ids=str)
+@pytest.mark.parametrize("field", list(TRANSCRIPT))
+def test_pow_grind_kernel(cuda, field, pow_bits, L, where):
+    F, W = TRANSCRIPT[field]
+    state = _field_rand(F, cuda, W, pow_bits)
+    left = _field_rand(F, cuda, L, L + 9) if L else None
+    k = F.SPEC.bits - pow_bits
+    out, scratch = T.pow_grind(state, left, k)
+    assert torch.equal(out, T.pow_grind_plain(state, left, k))
+    w, found = (int(v) for v in F.to_ints(out))
+    chunk = T.GRIND_CHUNK
+    wave = chunk * T.GRIND_BLOCKS_PER_SM * K._sms(cuda)
+    assert found == 1
+    assert int(scratch[3]) * chunk > w      # every chunk up to w tested
+    if where is not None:
+        assert where == ("first chunk" if w < chunk else
+                         "later block" if w < wave else "later claim")
+
+
+def test_pow_grind_kernel_exhausts_without_a_hang(cuda):
+    """Goldilocks at k = 0 (a response of 0, which no candidate below 2^32
+    gives but with odds of 2^-32): the search stops with the flag at 0
+    after testing every candidate."""
+    F, W = TRANSCRIPT["gl"]
+    out, scratch = T.pow_grind(_field_rand(F, cuda, W, 5), None, 0)
+    assert F.to_ints(out).tolist() == [0, 0]
+    assert int(scratch[3]) * T.GRIND_CHUNK == 1 << 32

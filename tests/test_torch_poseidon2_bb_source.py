@@ -1,9 +1,9 @@
 """The Poseidon2-BB CUDA source and its Merkle launch geometry, on the CPU.
 
-- The constants written into ``csrc/poseidon2_bb.cu`` (read as text) equal
-  ``hash/_poseidon2_bb_constants.py`` and the wrapper's, and the kernels'
-  internal-layer diagonal (the scale folded into each 2^shift) is the
-  reference's.
+- The constants written into ``csrc/poseidon2_bb.cuh`` and ``.cu`` (read
+  as text) equal ``hash/_poseidon2_bb_constants.py`` and the wrapper's,
+  and the kernels' internal-layer diagonal (the scale folded into each
+  2^shift) is the reference's.
 - The device code itself, compiled by the host C++ compiler against a stub
   of the CUDA runtime (a warp's shuffles by threads meeting at a barrier),
   runs the permutation for every group size (threads per state); each
@@ -43,12 +43,17 @@ from plonky2_goldibear_torch.ops import _build
 from plonky2_goldibear_torch.ops import poseidon2_bb as K
 
 SOURCE = os.path.join(_build.CSRC, "poseidon2_bb.cu")
+HEADER = os.path.join(_build.CSRC, "poseidon2_bb.cuh")   # the round code
 H100_SMS = 132
 
 
-def _source() -> str:
-    with open(SOURCE) as f:
+def _read(path: str) -> str:
+    with open(path) as f:
         return f.read()
+
+
+def _source() -> str:
+    return _read(HEADER) + _read(SOURCE)
 
 
 def _int(name: str) -> int:
@@ -221,7 +226,7 @@ def host_binary(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to compile the device code for the host")
     d = tmp_path_factory.mktemp("poseidon2_bb_host")
-    src = re.sub(r"<<<.*?>>>", "", _source(), flags=re.S)
+    src = re.sub(r"<<<.*?>>>", "", _read(SOURCE), flags=re.S)
     (d / "cuda_runtime.h").write_text(_STUB)
     (d / "poseidon2_bb_host.cpp").write_text(src)
     (d / "harness.cpp").write_text(_HARNESS)

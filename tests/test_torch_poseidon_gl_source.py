@@ -1,6 +1,7 @@
 """The Poseidon-GL CUDA source and its launch geometry, on the CPU.
 
-- The constants written into ``csrc/poseidon_gl.cu`` (read as text) equal
+- The constants written into ``csrc/poseidon_gl.cuh`` and ``.cu`` (read as
+  text) equal
   ``hash/_poseidon_gl_constants.py`` and the wrapper's.
 - The device code itself, compiled by the host C++ compiler against a stub
   of the CUDA runtime (the launches and the one inline PTX instruction
@@ -30,12 +31,17 @@ from plonky2_goldibear_torch.ops import _build
 from plonky2_goldibear_torch.ops import poseidon_gl as K
 
 SOURCE = os.path.join(_build.CSRC, "poseidon_gl.cu")
+HEADER = os.path.join(_build.CSRC, "poseidon_gl.cuh")   # the round code
 H100_SMS = 132
 
 
-def _source() -> str:
-    with open(SOURCE) as f:
+def _read(path: str) -> str:
+    with open(path) as f:
         return f.read()
+
+
+def _source() -> str:
+    return _read(HEADER) + _read(SOURCE)
 
 
 def _int(name: str) -> int:
@@ -160,12 +166,14 @@ def host_binary(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to compile the device code for the host")
     d = tmp_path_factory.mktemp("poseidon_gl_host")
-    src = re.sub(r"<<<.*?>>>", "", _source(), flags=re.S)
-    src, n = re.subn(
+    src = re.sub(r"<<<.*?>>>", "", _read(SOURCE), flags=re.S)
+    header, n = re.subn(
         r'asm\("mad\.lo\.u32 %0, %1, %2, %0;" : "\+r"\(acc\) : "r"\(x\), '
-        r'"n"\(C\)\);', "acc += x * C;", src)
-    assert n == 1, "the inline PTX of csrc/poseidon_gl.cu changed"
+        r'"n"\(C\)\);', "acc += x * C;", _read(HEADER))
+    assert n == 1, "the inline PTX of csrc/poseidon_gl.cuh changed"
     (d / "cuda_runtime.h").write_text(_STUB)
+    # the patched header beside the source, found before csrc's
+    (d / "poseidon_gl.cuh").write_text(header)
     (d / "poseidon_gl_host.cpp").write_text(src)
     (d / "harness.cpp").write_text(_HARNESS)
     exe = str(d / "harness")
